@@ -1,0 +1,30 @@
+"""octseg_torch — the PyTorch/CUDA port of octseg for one NVIDIA H100.
+
+Mirrors the module layout of the JAX package ``octseg`` (its reference),
+module for module. At runtime it imports torch, numpy and the standard
+library only. Entry points run on ``cuda`` unless the caller passes
+``device='cpu'``; without a GPU and without that request they raise.
+"""
+
+import os
+
+import torch
+
+__version__ = '0.1.0'
+
+# Repository root (parent of this package): configs/ and relative paths in
+# entry-point configs resolve against it, as in octseg.PROJECT_DIR.
+PROJECT_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` / ``'auto'`` / ``'cuda'`` -> the GPU, raising when there is
+    none; ``'cpu'`` (what the tests pass) -> the CPU."""
+    if device is None or str(device) == 'auto':
+        device = 'cuda'
+    device = torch.device(device)
+    if device.type == 'cuda' and not torch.cuda.is_available():
+        raise RuntimeError(
+            'octseg_torch runs on a CUDA device and none is available; '
+            "pass device='cpu' to run on the CPU")
+    return device
