@@ -376,7 +376,7 @@ def setup_logging() -> None:
     root.addHandler(console)
 
 
-def entry_point(config_name: str, setup_logs: bool = True):
+def entry_point(config_name: str):
     """Decorator turning ``main(cfg)`` into a CLI entry point: called with no
     arguments it reads ``key=value`` overrides from ``sys.argv[1:]``; it can
     also be called with a prebuilt :class:`Config` (as the tests do)."""
@@ -387,8 +387,7 @@ def entry_point(config_name: str, setup_logs: bool = True):
                     overrides: Optional[List[str]] = None):
             if cfg is None:
                 cfg = load_config(config_name, overrides=overrides or sys.argv[1:])
-            if setup_logs:
-                setup_logging()
+            setup_logging()
             return fn(cfg)
 
         wrapper.config_name = config_name

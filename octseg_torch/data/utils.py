@@ -19,6 +19,7 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
+import octseg_torch
 from octseg_torch.core.registry import CLASS_COLORS_RGB, CLASS_IDS
 from octseg_torch.data.image import paste_solid, write_png
 from octseg_torch.ops.kernels.postprocess import fused_overlay_postprocess
@@ -54,13 +55,15 @@ def _write_frame(img: np.ndarray, mask: np.ndarray, fill: np.ndarray,
 
 def save_results(images: Sequence[np.ndarray], masks: Sequence[np.ndarray],
                  images_name: Sequence[str], classes: Sequence[str],
-                 save_dir: str, device='cpu') -> None:
+                 save_dir: str, device=None) -> None:
     """Write the reference's PNG pair per frame.
 
     images: uint8 (H, W, 3) RGB frames at output size; masks: (H, W, 4)
-    {0,1} per frame; the postprocess runs on ``device``. Frames are
+    {0,1} per frame; the postprocess runs on ``device`` (default: the GPU,
+    see ``octseg_torch.resolve_device``). Frames are
     composited and encoded on a thread pool (zlib and numpy release the
     interpreter lock)."""
+    device = octseg_torch.resolve_device(device)
     os.makedirs(save_dir, exist_ok=True)
     if len(images) == 0:
         return

@@ -58,10 +58,11 @@ def _rgb(frame: np.ndarray) -> np.ndarray:
 
 def render_mask_block(frames: np.ndarray, block_masks: np.ndarray, start: int,
                       out_size, classes, save_dir: str, base: str, width: int,
-                      device='cpu') -> None:
+                      device=None) -> None:
     """Write ``{base}_{i}_overlay.png`` + ``_mask.png`` for one block of
     masks; frames are resized as PIL's default RGB resize does, on a thread
-    pool (numpy releases the interpreter lock)."""
+    pool (numpy releases the interpreter lock). The postprocess runs on
+    ``device`` (default: the GPU, see ``octseg_torch.resolve_device``)."""
     out_h, out_w = int(out_size[0]), int(out_size[1])
     n = block_masks.shape[0]
     with ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as pool:

@@ -3,8 +3,7 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface. At first use it is
 compiled for sm_90a into ``octseg_torch/_build/<name>-<hash>.so``, keyed by a
 hash of the source and the flags, so an edited source is rebuilt and an
-unchanged one is loaded as built. ``build_all`` starts one nvcc per source,
-all at once. Nothing here runs at import time.
+unchanged one is loaded as built. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -14,15 +13,13 @@ import hashlib
 import os
 import shutil
 import subprocess
-import time
-from typing import Dict, Iterable
+from typing import Dict
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC_DIR = os.path.join(_PKG_DIR, 'csrc')
 BUILD_DIR = os.path.join(_PKG_DIR, '_build')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC')
-SOURCES = ('postprocess',)
 
 _libs: Dict[str, ctypes.CDLL] = {}
 
@@ -42,43 +39,20 @@ def library_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f'{name}-{digest[:16]}.so')
 
 
-def _start(name: str):
-    """Popen of the nvcc for ``name``, or None when it is built already."""
-    out = library_path(name)
-    if os.path.isfile(out):
-        return None
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f'{out}.{os.getpid()}.tmp'
-    cmd = [find_nvcc(), *NVCC_FLAGS, '-o', tmp, os.path.join(CSRC_DIR, f'{name}.cu')]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
-    return proc, tmp, out
-
-
-def _finish(name: str, started) -> None:
-    if started is None:
-        return
-    proc, tmp, out = started
-    log, _ = proc.communicate()
-    if proc.returncode != 0:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-        raise RuntimeError(f'nvcc failed for csrc/{name}.cu:\n{log.decode(errors="replace")}')
-    os.replace(tmp, out)   # atomic: a concurrent builder sees a whole file
-
-
-def build_all(names: Iterable[str] = SOURCES) -> float:
-    """Compile every source not built yet, all nvcc processes at once;
-    returns the seconds it took."""
-    t0 = time.perf_counter()
-    started = {name: _start(name) for name in names}
-    for name, s in started.items():
-        _finish(name, s)
-    return time.perf_counter() - t0
-
-
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built first if needed."""
     if name not in _libs:
-        _finish(name, _start(name))
-        _libs[name] = ctypes.CDLL(library_path(name))
+        out = library_path(name)
+        if not os.path.isfile(out):
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            tmp = f'{out}.{os.getpid()}.tmp'
+            cmd = [find_nvcc(), *NVCC_FLAGS, '-o', tmp, os.path.join(CSRC_DIR, f'{name}.cu')]
+            proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+            if proc.returncode != 0:
+                if os.path.exists(tmp):
+                    os.remove(tmp)
+                raise RuntimeError(f'nvcc failed for csrc/{name}.cu:\n'
+                                   f'{proc.stdout.decode(errors="replace")}')
+            os.replace(tmp, out)   # atomic: a concurrent builder sees a whole file
+        _libs[name] = ctypes.CDLL(out)
     return _libs[name]

@@ -12,6 +12,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 from PIL import Image
 
 from octseg.core.config import Config as JaxConfig
@@ -100,9 +101,25 @@ def test_render_mask_block_names_and_sizes(tmp_path):
     frames = np.random.default_rng(6).integers(0, 255, (3, 20, 30, 1), dtype=np.uint8)
     masks = np.zeros((2, 16, 24, 4), np.float32)
     masks[:, 4:9, 5:12, 0] = 1
-    predict.render_mask_block(frames, masks, 1, (16, 24), ['Lumen'], str(tmp_path), 'X', 2)
+    predict.render_mask_block(frames, masks, 1, (16, 24), ['Lumen'], str(tmp_path), 'X', 2,
+                              device='cpu')
     assert sorted(os.listdir(tmp_path)) == ['X_02_mask.png', 'X_02_overlay.png',
                                            'X_03_mask.png', 'X_03_overlay.png']
     mask = np.asarray(Image.open(tmp_path / 'X_02_mask.png'))
     assert mask.shape == (16, 24, 3)
     assert (mask[5, 6] == (228, 30, 199)).all() and (mask[0, 0] == 128).all()
+
+
+def test_render_mask_block_defaults_to_the_gpu(tmp_path):
+    """Without ``device`` the render path runs on the GPU, or raises where
+    there is none: it never drops to the CPU on its own."""
+    frames = np.zeros((1, 20, 30, 1), np.uint8)
+    masks = np.zeros((1, 16, 24, 4), np.float32)
+    if torch.cuda.is_available():
+        predict.render_mask_block(frames, masks, 0, (16, 24), ['Lumen'], str(tmp_path), 'X', 1)
+        assert sorted(os.listdir(tmp_path)) == ['X_1_mask.png', 'X_1_overlay.png']
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            predict.render_mask_block(frames, masks, 0, (16, 24), ['Lumen'], str(tmp_path),
+                                      'X', 1)
+        assert os.listdir(tmp_path) == []
