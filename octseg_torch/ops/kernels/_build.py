@@ -40,19 +40,19 @@ def library_path(name: str) -> str:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built first if needed."""
+    """The loaded library for ``csrc/<name>.cu``, built first if needed.
+    Safe to call from several threads at once, one source each: nvcc runs
+    outside the GIL, so the sources then build in parallel."""
     if name not in _libs:
         out = library_path(name)
         if not os.path.isfile(out):
             os.makedirs(BUILD_DIR, exist_ok=True)
-            tmp = f'{out}.{os.getpid()}.tmp'
-            cmd = [find_nvcc(), *NVCC_FLAGS, '-o', tmp, os.path.join(CSRC_DIR, f'{name}.cu')]
-            proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+            tmp = f'{out}.{os.getpid()}.{name}.tmp'
+            proc = subprocess.run([find_nvcc(), *NVCC_FLAGS, '-o', tmp,
+                                   os.path.join(CSRC_DIR, f'{name}.cu')],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
             if proc.returncode != 0:
-                if os.path.exists(tmp):
-                    os.remove(tmp)
-                raise RuntimeError(f'nvcc failed for csrc/{name}.cu:\n'
-                                   f'{proc.stdout.decode(errors="replace")}')
-            os.replace(tmp, out)   # atomic: a concurrent builder sees a whole file
+                raise RuntimeError(f'nvcc failed for csrc/{name}.cu:\n{proc.stdout}')
+            os.replace(tmp, out)   # atomic: a concurrent build sees a whole file
         _libs[name] = ctypes.CDLL(out)
     return _libs[name]

@@ -1,6 +1,14 @@
-"""weights.ckpt in the flax msgpack layout, read and written without flax.
+"""Model dirs and checkpoints, read and written without flax (the port of
+octseg/train/checkpoint.py).
 
-The port of the weights half of octseg/train/checkpoint.py. A model dir is
+- ``weights.ckpt`` (flax msgpack layout, what both packages read) through
+  ``save_weights`` / ``load_weights`` / ``restore_weights_into``;
+- ``config.json``, the reference's manifest keys (``save_manifest``);
+- ``resume.ckpt`` (``save_resume`` / ``load_resume``): the port's own map
+  ``{'state': {'step', 'model', 'opt'}, 'epoch', 'extra'}`` in the same
+  msgpack codec, read only by the port (octseg's holds an optax state).
+
+A model dir is
 ``config.json`` + ``weights.ckpt``; the checkpoint is one msgpack map
 ``{'params': {...}, 'batch_stats': {...}}`` of nested string-keyed maps whose
 leaves are numpy arrays, encoded as flax's ``serialization.msgpack_serialize``
@@ -20,9 +28,10 @@ msgpack-python's packer, so a tree written here is byte-identical to flax's.
 
 from __future__ import annotations
 
+import json
 import os
 import struct
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 import numpy as np
 
@@ -259,16 +268,134 @@ def save_weights(path: str, params: Dict[str, Any],
                  batch_stats: Dict[str, Any]) -> None:
     """Write ``{'params', 'batch_stats'}`` (numpy leaves) to ``path``
     atomically, in the layout octseg.train.checkpoint.load_weights reads."""
-    data = serialize({'params': params, 'batch_stats': batch_stats})
+    _atomic_write(path, serialize({'params': params, 'batch_stats': batch_stats}))
+
+
+def load_weights(path: str) -> Dict[str, Any]:
+    with open(path, 'rb') as f:
+        return restore(f.read())
+
+
+def _atomic_write(path: str, data: bytes) -> None:
     tmp = path + '.tmp'
     with open(tmp, 'wb') as f:
         f.write(data)
     os.replace(tmp, path)
 
 
-def load_weights(path: str) -> Dict[str, Any]:
+def save_model_weights(path: str, model, architecture: str, encoder: str) -> None:
+    """``weights.ckpt`` of a port model, in the flax layout."""
+    from octseg_torch.models.convert import state_dict_to_variables
+
+    sd = {k: v.detach().cpu().numpy() for k, v in model.state_dict().items()}
+    variables = state_dict_to_variables(sd, architecture, encoder)
+    save_weights(path, variables['params'], variables['batch_stats'])
+
+
+def _load_checked(module, sd: Dict[str, np.ndarray], what: str) -> None:
+    """``module.load_state_dict(sd)`` after a key and shape check that names
+    every mismatch."""
+    import torch
+
+    own = module.state_dict()
+    errors = [f'missing {k}' for k in own if k not in sd]
+    errors += [f'unexpected {k}' for k in sd if k not in own]
+    errors += [f'{k}: {tuple(np.shape(sd[k]))} vs {tuple(v.shape)}' for k, v in own.items()
+               if k in sd and tuple(np.shape(sd[k])) != tuple(v.shape)]
+    if errors:
+        raise ValueError(f'{what} does not match the model:\n  ' + '\n  '.join(errors[:20]))
+    module.load_state_dict({k: torch.as_tensor(np.array(v)) for k, v in sd.items()})
+
+
+def restore_weights_into(model, path: str, architecture: str, encoder: str) -> None:
+    """Load a ``weights.ckpt`` (params and BatchNorm statistics) into
+    ``model``. Conv and BatchNorm shapes do not depend on the input size, so
+    a donor trained at another ``input_size`` loads."""
+    from octseg_torch.models.convert import variables_to_state_dict
+
+    sd = variables_to_state_dict(load_weights(path), architecture, encoder)
+    _load_checked(model, sd, path)
+
+
+def load_pretrained_encoder(model, path: str) -> None:
+    """Load a local torch state dict (a torchvision/SMP encoder, a full SMP
+    model or a Lightning checkpoint) into ``model.encoder``; the port's
+    module names are SMP's, so this is ``load_state_dict`` after the prefix
+    handling of octseg's ``load_pretrained_encoder``."""
+    import torch
+
+    raw = torch.load(path, map_location='cpu', weights_only=True)
+    if isinstance(raw, dict) and 'state_dict' in raw:
+        raw = raw['state_dict']
+    sd = {k: v.numpy() for k, v in raw.items()}
+    if any(k.startswith(('model.encoder.', 'encoder.')) for k in sd):
+        pre = 'model.encoder.' if any(k.startswith('model.encoder.') for k in sd) \
+            else 'encoder.'
+        sd = {k[len(pre):]: v for k, v in sd.items() if k.startswith(pre)}
+    # torchvision classifiers carry a head the encoder has not
+    sd = {k: v for k, v in sd.items() if not k.startswith('fc.')}
+    own = model.encoder.state_dict()
+    for k in own:  # torchvision files predate num_batches_tracked
+        if k.endswith('num_batches_tracked') and k not in sd:
+            sd[k] = own[k].numpy()
+    _load_checked(model.encoder, sd, path)
+
+
+def save_manifest(model_dir: str, cfg: Any, model_name: str) -> None:
+    """config.json with the reference's keys; ``normalize: true`` says the
+    model was trained on ImageNet-normalized inputs."""
+    os.makedirs(model_dir, exist_ok=True)
+    with open(os.path.join(model_dir, 'config.json'), 'w') as f:
+        json.dump({
+            'model_name': model_name,
+            'architecture': cfg.architecture,
+            'encoder': cfg.encoder,
+            'input_size': cfg.input_size,
+            'classes': list(cfg.classes),
+            'batch_size': cfg.batch_size,
+            'optimizer': cfg.optimizer,
+            'lr': cfg.lr,
+            'normalize': True,
+        }, f, indent=2)
+
+
+def _numpy_list(tensors) -> Dict[str, np.ndarray]:
+    return {str(i): t.detach().cpu().numpy() for i, t in enumerate(tensors)}
+
+
+def save_resume(path: str, state, epoch: int, extra: Dict[str, Any] = None) -> None:
+    """Write the full train state (model, optimizer, step) with ``epoch`` and
+    ``extra`` (python scalars, strings and dicts of them)."""
+    opt = {k: (_numpy_list(v) if isinstance(v, list) else v)
+           for k, v in state.opt_state.items()}
+    payload = {
+        'state': {'step': int(state.step),
+                  'model': {k: v.detach().cpu().numpy()
+                            for k, v in state.model.state_dict().items()},
+                  'opt': opt},
+        'epoch': int(epoch),
+        'extra': extra or {},
+    }
+    _atomic_write(path, packb(payload))
+
+
+def load_resume(path: str, state) -> Tuple[Any, int, Dict[str, Any]]:
+    """Restore ``state`` (a TrainState built for the same model and
+    optimizer) in place from ``path``; returns (state, epoch, extra)."""
+    import torch
+
     with open(path, 'rb') as f:
-        return restore(f.read())
+        raw = unpackb(f.read())
+    saved = raw['state']
+    _load_checked(state.model, saved['model'], path)
+    for k, v in saved['opt'].items():
+        if isinstance(v, dict):
+            for i, t in enumerate(state.opt_state[k]):
+                t.copy_(torch.from_numpy(np.array(v[str(i)])))
+        else:
+            state.opt_state[k] = v
+    state.step = int(saved['step'])
+    return state, int(raw['epoch']), dict(raw.get('extra', {}))
 
 
 def initialize_model_dir(model_dir: str, classes, arch: str = 'Unet',
@@ -279,8 +406,6 @@ def initialize_model_dir(model_dir: str, classes, arch: str = 'Unet',
     conv weights N(0, 1/fan_in), conv biases 0, BatchNorm at its identity
     (scale 1, bias 0, mean 0, var 1), as flax initializes them. For tests and
     smoke runs; training writes real weights."""
-    import json
-
     import torch
 
     from octseg_torch.models import create_model
