@@ -9,13 +9,17 @@ Phases, each raising on failure (exit code != 0):
      started together;
   3. K1, the fused overlay postprocess kernel, against its plain torch
      version on the card (ring bit-exact, fill within 1e-5) at the predict
-     path's shape and at test shapes, timed with CUDA events beside the
-     plain version and the card's bound;
+     path's shape and at test shapes: widths 3, 31, 32, 33 and 1000 (word
+     boundaries), heights 3 and 4, masks all ones, all zeros and touching
+     all four borders, three column tiles (2100 px) and 65537 masks; timed
+     with CUDA events beside the plain version and the card's bound;
   4. K2, the augmentation warp kernel, against its plain torch version
      (masks bit-exact, images within 1e-4 on 0..255) at the training
      path's shape (4, 512, 512) with every geometric branch on, six 32 px
-     maps and a non-square frame, timed beside the plain version, the bound
-     and F.grid_sample (a yardstick the port never calls);
+     maps, a non-square frame, 1 + 1 and 3 + 1 channels and a width that
+     is not a multiple of 4; timed warm and with a cold L2 (its inputs fit
+     in the L2) beside the plain version, the bound and F.grid_sample (a
+     yardstick the port never calls);
   5. the predict path at full width: a UnetPlusPlus/resnet101 Lumen model
      dir at 512 px (random weights from a seed), a 32-frame 704x704
      grayscale DICOM pullback, ``octseg_torch.infer.predict.main`` with
@@ -112,12 +116,52 @@ def border_masks(torch):
     return masks
 
 
-def time_ms(torch, fn, runs: int = 25, warmup: int = 3) -> float:
-    """Median of ``runs`` CUDA-event timings of ``fn()``, after warm-up."""
+def edge_masks(torch, kind: str, shape, seed: int):
+    """Masks on the card: all ones, all zeros, a frame touching all four
+    borders over sparse noise, or random bits (one in ten set: denser noise
+    closes into all ones)."""
+    if kind == 'ones':
+        return torch.ones(shape, device='cuda')
+    if kind == 'zeros':
+        return torch.zeros(shape, device='cuda')
+    gen = torch.Generator(device='cuda').manual_seed(seed)
+    if kind == 'random':
+        return (torch.rand(shape, generator=gen, device='cuda') > 0.9).float()
+    masks = (torch.rand(shape, generator=gen, device='cuda') > 0.8).float()
+    masks[:, 0, :] = masks[:, -1, :] = 1
+    masks[:, :, 0] = masks[:, :, -1] = 1
+    masks[:, 1:3, 1:3] = 0
+    return masks
+
+
+L2_SCRUB_BYTES = 64 << 20     # more than the H100's 50 MB L2
+HOLD_CYCLES = 2_000_000       # about 1 ms of device clock: longer than a call's host side
+
+
+def time_ms(torch, fn, runs: int = 25, warmup: int = 3, cold_l2: bool = False,
+            hold: bool = False) -> float:
+    """Median of ``runs`` CUDA-event timings of ``fn()``, after warm-up.
+    With ``hold`` (for a kernel and its one-call yardstick), the device is
+    held busy (``torch.cuda._sleep``) before each start event for longer
+    than the host takes to enqueue ``fn``, so the window holds the device's
+    time and not the host's launch overhead. Without it (chains of many
+    launches: the plain versions, a training step, the augmentation) the
+    window also holds the host's enqueue time, as the users of those chains
+    wait for it. With ``cold_l2``, each timed call follows, outside the
+    event window, a write of one 64 MB buffer and a read of another: the L2
+    then holds none of ``fn``'s inputs and no dirty lines whose write-back
+    would fall inside the window."""
+    scrub = ([torch.empty(L2_SCRUB_BYTES // 4, device='cuda') for _ in range(2)]
+             if cold_l2 else None)
     for _ in range(warmup):
         fn()
     times = []
-    for _ in range(runs):
+    for i in range(runs):
+        if scrub:
+            scrub[0].fill_(float(i))
+            scrub[1].sum()
+        if hold:
+            torch.cuda._sleep(HOLD_CYCLES)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         fn()
@@ -138,6 +182,16 @@ def check_k1(torch):
         '3x130x250': blob_masks(torch, 3, 130, 250, 3),
         'border 1x64x200': border_masks(torch),
     }
+    # word boundaries: 1000 = 31 words + 8 bits; 2100 px = three column tiles;
+    # 65537 masks, more than one grid's z
+    for w in (3, 31, 32, 33, 1000):
+        for h in (3, 4):
+            cases[f'random 2x{h}x{w}'] = edge_masks(torch, 'random', (2, h, w), h * w)
+    for kind in ('ones', 'zeros', 'border'):
+        for shape in ((1, 3, 3), (2, 37, 33), (2, 70, 1000)):
+            cases[f'{kind} {"x".join(map(str, shape))}'] = edge_masks(torch, kind, shape, 7)
+    cases['random 1x40x2100'] = edge_masks(torch, 'random', (1, 40, 2100), 8)
+    cases['random 65537x3x5'] = edge_masks(torch, 'random', (65537, 3, 5), 9)
     max_abs_err, ring_exact = 0.0, True
     for name, masks in cases.items():
         fill, ring = k1.fused_overlay_postprocess(masks)
@@ -155,7 +209,7 @@ def check_k1(torch):
     record = {}
     for name in ('main path', '64x1000x1000'):
         masks = cases[name]
-        ms = time_ms(torch, lambda: k1.fused_overlay_postprocess(masks))
+        ms = time_ms(torch, lambda: k1.fused_overlay_postprocess(masks), hold=True)
         plain_ms = time_ms(torch, lambda: k1.postprocess_chain(masks))
         px = masks.numel()
         bytes_ms = K1_BYTES_PER_PIXEL * px / HBM_BYTES_PER_S * 1e3
@@ -182,9 +236,9 @@ def k2_cases(torch):
 
     gen = torch.Generator(device='cuda').manual_seed(3)
 
-    def batch(n, h, w):
-        imgs = torch.rand((n, h, w, 3), generator=gen, device='cuda') * 255.0
-        masks = (torch.rand((n, h, w, 4), generator=gen, device='cuda') > 0.6).float()
+    def batch(n, h, w, ci=3, cm=4):
+        imgs = torch.rand((n, h, w, ci), generator=gen, device='cuda') * 255.0
+        masks = (torch.rand((n, h, w, cm), generator=gen, device='cuda') > 0.6).float()
         return imgs, masks
 
     def drawn_maps(n, h, w):
@@ -217,6 +271,11 @@ def k2_cases(torch):
     for name, mats in small.items():
         cases[f'32 px {name}'] = (*batch(1, s, s), mats.contiguous())
     cases['non-square (3, 130, 250)'] = (*batch(3, 130, 250), drawn_maps(3, 130, 250))
+    # the general path: other channel counts, a width that is not a multiple of 4
+    for ci, cm in ((1, 1), (3, 1)):
+        cases[f'{ci} + {cm} channels (2, 96, 128)'] = (*batch(2, 96, 128, ci, cm),
+                                                       drawn_maps(2, 96, 128))
+    cases['unaligned width (2, 64, 61)'] = (*batch(2, 64, 61), drawn_maps(2, 64, 61))
     return cases
 
 
@@ -263,17 +322,24 @@ def check_k2(torch):
         if name.startswith('train path'):
             n, h, w, ci = imgs.shape
             cm = masks.shape[3]
-            ms = time_ms(torch, lambda: k2.warp_pair(imgs, masks, mats))
+            # its 29 MB of inputs fit in the 50 MB L2: timed warm and cold
+            ms = time_ms(torch, lambda: k2.warp_pair(imgs, masks, mats), hold=True)
+            ms_cold = time_ms(torch, lambda: k2.warp_pair(imgs, masks, mats), cold_l2=True,
+                              hold=True)
             plain_ms = time_ms(torch, lambda: sample_pair_plain(imgs, masks, mats))
-            library_ms = time_ms(torch, grid_sample_pair(torch, imgs, masks, mats))
+            yardstick = grid_sample_pair(torch, imgs, masks, mats)
+            library_ms = time_ms(torch, yardstick, hold=True)
+            library_cold = time_ms(torch, yardstick, cold_l2=True, hold=True)
             px = n * h * w
             bytes_ms = (2 * 4 * (ci + cm) * px + 36 * n) / HBM_BYTES_PER_S * 1e3
             ops_ms = K2_OPS_PER_PIXEL * px / FP32_FLOPS * 1e3
-            record = {'shape': [n, h, w, ci, cm], 'ms': ms, 'plain_ms': plain_ms,
-                      'library_ms': library_ms, 'bound_ms': max(bytes_ms, ops_ms),
+            record = {'shape': [n, h, w, ci, cm], 'ms': ms, 'ms_cold_l2': ms_cold,
+                      'plain_ms': plain_ms, 'library_ms': library_ms,
+                      'library_ms_cold_l2': library_cold, 'bound_ms': max(bytes_ms, ops_ms),
                       'bound_by': 'bytes' if bytes_ms >= ops_ms else 'operations'}
-            log(f'K2 {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, grid_sample '
-                f'{library_ms:.4f} ms, bound {record["bound_ms"]:.4f} ms ({record["bound_by"]})')
+            log(f'K2 {name}: kernel {ms:.4f} ms warm, {ms_cold:.4f} ms cold L2; plain '
+                f'{plain_ms:.4f} ms; grid_sample {library_ms:.4f} ms warm, {library_cold:.4f} '
+                f'ms cold L2; bound {record["bound_ms"]:.4f} ms ({record["bound_by"]})')
     record.update(max_abs_err=max_abs_err, masks_exact=masks_exact)
     return record
 
@@ -773,9 +839,11 @@ def main() -> int:
         'max_abs_err': k2['max_abs_err'],
         'masks_exact': k2['masks_exact'],
         'ms': k2['ms'],
+        'ms_cold_l2': k2['ms_cold_l2'],
         'plain_ms': k2['plain_ms'],
         'bound_ms': k2['bound_ms'], 'bound_by': k2['bound_by'],
         'library_ms': k2['library_ms'],
+        'library_ms_cold_l2': k2['library_ms_cold_l2'],
     }]
     print(json.dumps({'kernels': kernels,
                       'predict_path': {'frames': main['frames'], 'seconds': main['seconds'],

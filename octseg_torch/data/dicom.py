@@ -6,7 +6,8 @@ nothing of octseg). It implements the subset OCT pullbacks need:
 - read: explicit & implicit VR little endian; native (uncompressed) pixel
   data for uint8/uint16. Encapsulated (JPEG-family) frames are parsed but
   not decoded: octseg decodes them with cv2, which the port does not use
-  (ROADMAP.md, queue A item 1); the tag dictionary covers the fields the
+  (ROADMAP.md, "The image-directory predict path", which adds a JPEG
+  decoder); the tag dictionary covers the fields the
   metadata extractor exports.
 - write: explicit VR little endian, multi-frame 8-bit RGB or grayscale,
   uncompressed — used by tests and demo-data generation.
@@ -130,7 +131,7 @@ class Dataset:
             raise NotImplementedError(
                 f'encapsulated pixel data (transfer syntax {ts}) needs a JPEG '
                 f'decoder; octseg_torch decodes native pixel data only '
-                f'(ROADMAP.md, queue A item 1)')
+                f'(ROADMAP.md, "The image-directory predict path")')
         dtype = np.uint8 if bits == 8 else np.uint16
         arr = np.frombuffer(raw, dtype=dtype)
         expected = frames * rows * cols * spp

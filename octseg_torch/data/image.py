@@ -8,8 +8,8 @@
   Pillow's integer blend DIV255(in1 * (255 - a) + in2 * a).
 - ``write_png``: an 8-bit gray or RGB PNG through zlib.
 - ``normalize_slice``: cv2.normalize(NORM_MINMAX, CV_8U).
-- ``read_png``: ``cv2.imread(path)`` (IMREAD_COLOR) of an 8-bit,
-  non-interlaced gray, gray+alpha, RGB or RGBA PNG: BGR uint8, alpha dropped.
+- ``read_png``: ``cv2.imread(path)`` (IMREAD_COLOR) of any PNG: every
+  colour type and bit depth, interlaced or not; BGR uint8, alpha dropped.
 - ``resize_linear_u8``: ``cv2.resize(img, (w, h))`` (INTER_LINEAR) of a
   uint8 image, with cv2's 11-bit fixed-point coefficients, its rounding in
   the vertical pass and its switch to INTER_AREA for an exact 2x downscale.
@@ -141,7 +141,12 @@ def normalize_slice(img: np.ndarray) -> np.ndarray:
 # ------------------------------- PNG reader --------------------------------
 
 _PNG_SIGNATURE = b'\x89PNG\r\n\x1a\n'
-_PNG_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}   # colour type -> samples per pixel
+_PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}   # colour type -> samples per pixel
+_PNG_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
+# Adam7 passes: (first column, first row, column step, row step)
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+          (0, 1, 1, 2))
+_JPEG_SOI = b'\xff\xd8\xff'
 
 
 def _paeth(a: np.ndarray, b: np.ndarray, c: np.ndarray) -> np.ndarray:
@@ -189,15 +194,34 @@ def _unfilter(ftype: np.ndarray, data: np.ndarray) -> np.ndarray:
     return out[diag + 2, ys + 1].astype(np.uint8)
 
 
+def _unpack_samples(rows: np.ndarray, n: int, depth: int) -> np.ndarray:
+    """(h, n) integer samples of unfiltered rows (h, row bytes), big-endian
+    as PNG stores them, for a bit depth of 1, 2, 4, 8 or 16."""
+    if depth == 8:
+        return rows[:, :n]
+    if depth == 16:
+        return rows[:, :2 * n].view('>u2')
+    shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
+    bits = (rows[:, :, None] >> shifts) & ((1 << depth) - 1)
+    return bits.reshape(rows.shape[0], -1)[:, :n]
+
+
 def read_png(path: str) -> np.ndarray:
-    """``cv2.imread(path)``: (H, W, 3) BGR uint8. Gray is replicated to three
-    channels and alpha is dropped, as IMREAD_COLOR does; palette, 16-bit and
-    interlaced files raise."""
+    """``cv2.imread(path)``: (H, W, 3) BGR uint8, as libpng expands for
+    IMREAD_COLOR. Every colour type and bit depth PNG allows, interlaced
+    (Adam7) or not: 16-bit samples keep their high byte, 1/2/4-bit gray is
+    scaled to 0..255, a palette is looked up (indices past its end read
+    black, tRNS is ignored), gray is replicated to three channels and alpha
+    is dropped. A JPEG file raises NotImplementedError."""
     with open(path, 'rb') as f:
         buf = f.read()
+    if buf[:3] == _JPEG_SOI:
+        raise NotImplementedError(
+            f'{path}: JPEG needs a decoder, which ROADMAP.md, "The image-directory '
+            f'predict path" adds; read_png reads PNG files')
     if buf[:8] != _PNG_SIGNATURE:
         raise ValueError(f'{path}: not a PNG file')
-    pos, idat, ihdr = 8, [], None
+    pos, idat, ihdr, plte = 8, [], None, b''
     while pos + 8 <= len(buf):
         (length,) = struct.unpack_from('>I', buf, pos)
         tag = buf[pos + 4:pos + 8]
@@ -205,6 +229,8 @@ def read_png(path: str) -> np.ndarray:
         pos += 12 + length
         if tag == b'IHDR':
             ihdr = struct.unpack('>IIBBBBB', body)
+        elif tag == b'PLTE':
+            plte = body
         elif tag == b'IDAT':
             idat.append(body)
         elif tag == b'IEND':
@@ -212,21 +238,43 @@ def read_png(path: str) -> np.ndarray:
     if ihdr is None:
         raise ValueError(f'{path}: PNG without IHDR')
     w, h, depth, color, _comp, _filt, interlace = ihdr
-    if depth != 8 or color not in _PNG_CHANNELS or interlace != 0:
-        raise NotImplementedError(
-            f'{path}: read_png takes 8-bit non-interlaced gray, gray+alpha, RGB or '
-            f'RGBA PNGs (bit depth {depth}, colour type {color}, interlace {interlace})')
-    bpp = _PNG_CHANNELS[color]
-    rows = np.frombuffer(zlib.decompress(b''.join(idat)), np.uint8)
-    if rows.size != h * (1 + w * bpp):
-        raise ValueError(f'{path}: truncated PNG image data')
-    rows = rows.reshape(h, 1 + w * bpp)
-    if rows[:, 0].max(initial=0) > 4:
-        raise ValueError(f'{path}: bad PNG filter type')
-    px = _unfilter(rows[:, 0], rows[:, 1:].reshape(h, w, bpp))
-    if bpp <= 2:
-        return np.ascontiguousarray(np.repeat(px[..., :1], 3, axis=-1))
-    return np.ascontiguousarray(px[..., 2::-1])
+    if depth not in _PNG_DEPTHS.get(color, ()) or interlace > 1:
+        raise ValueError(f'{path}: bad PNG header (bit depth {depth}, colour type '
+                         f'{color}, interlace {interlace})')
+    if color == 3 and not plte:
+        raise ValueError(f'{path}: palette PNG without PLTE')
+    spp = _PNG_CHANNELS[color]
+    bpp = max(1, spp * depth // 8)   # the filters' byte distance
+    stream = np.frombuffer(zlib.decompress(b''.join(idat)), np.uint8)
+    samples = np.empty((h, w, spp), np.uint16 if depth == 16 else np.uint8)
+    used = 0
+    for x0, y0, dx, dy in (_ADAM7 if interlace else ((0, 0, 1, 1),)):
+        pw, ph = len(range(x0, w, dx)), len(range(y0, h, dy))
+        if pw == 0 or ph == 0:
+            continue
+        row_bytes = -(-pw * spp * depth // 8)
+        size = ph * (1 + row_bytes)
+        if used + size > stream.size:
+            raise ValueError(f'{path}: truncated PNG image data')
+        rows = stream[used:used + size].reshape(ph, 1 + row_bytes)
+        used += size
+        if rows[:, 0].max(initial=0) > 4:
+            raise ValueError(f'{path}: bad PNG filter type')
+        px = _unfilter(rows[:, 0], rows[:, 1:].reshape(ph, row_bytes // bpp, bpp))
+        samples[y0::dy, x0::dx] = _unpack_samples(px.reshape(ph, row_bytes), pw * spp,
+                                                  depth).reshape(ph, pw, spp)
+    if depth == 16:
+        samples = (samples >> 8).astype(np.uint8)
+    if color == 3:
+        table = np.zeros((256, 3), np.uint8)
+        pal = np.frombuffer(plte[:len(plte) // 3 * 3], np.uint8).reshape(-1, 3)[:256]
+        table[:len(pal)] = pal
+        return np.ascontiguousarray(table[samples[..., 0], ::-1])
+    if depth < 8:
+        samples = samples * np.uint8(255 // ((1 << depth) - 1))
+    if spp <= 2:
+        return np.ascontiguousarray(np.repeat(samples[..., :1], 3, axis=-1))
+    return np.ascontiguousarray(samples[..., 2::-1])
 
 
 # ------------------------- cv2 resize of uint8 images -----------------------

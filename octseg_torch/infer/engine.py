@@ -14,9 +14,10 @@ with pinned host buffers, ``non_blocking`` copies and CUDA events: block
 k+1's upload and forward are queued before block k's bits are expanded on
 the host.
 
-Not ported: bf16 and memory-driven block sizing (ROADMAP.md, queue A item
-3); the device mesh, int8 and AOT exports (item 11). The block is
-``block_size`` frames, as configured.
+Not ported: bf16 and memory-driven block sizing (ROADMAP.md, "Memory-driven
+block sizing, then bf16"); the device mesh, int8 and AOT exports ("Opt-in,
+last"). The block is ``block_size`` floored to a power of two, as the
+reference floors it on one device.
 
 fp32 convolutions run with TF32 off (``torch.backends.cudnn.flags(...,
 allow_tf32=False)``) and so do matmuls (``torch.backends.cuda.matmul
@@ -98,7 +99,8 @@ class InferenceEngine:
         self.output_resize = output_resize
         self.classes = list(classes)
         self.models_dir = models_dir
-        self.block_size = int(block_size)
+        # the reference's per-device quota is a power of two; one device here
+        self.block_size = 1 << (int(block_size).bit_length() - 1)
         self.device = resolve_device(device)
         self._bundles: Dict[str, tuple] = {}
 

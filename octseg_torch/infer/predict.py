@@ -4,7 +4,7 @@ The port of octseg/infer/predict.py for ``data_dir`` pointing at a DICOM
 pullback: frames stream through ``InferenceEngine.iter_pullback`` block by
 block and each frame gets the reference's ``{base}_{i}_overlay.png`` and
 ``_mask.png``. A ``data_dir`` that is a directory of images is the next
-slice of the port (ROADMAP.md, queue A item 1).
+slice of the port (ROADMAP.md, "The image-directory predict path").
 
 Config: configs/predict.yaml (the reference's keys).
 Usage: python -m octseg_torch.infer.predict data_dir=<pullback.dcm> \\
@@ -30,6 +30,12 @@ from octseg_torch.data.utils import save_results
 from octseg_torch.infer.engine import InferenceEngine
 
 log = logging.getLogger(__name__)
+
+# keys that octseg's predict passes to its engine and the port does not run
+_NOT_PORTED = {
+    'bf16': 'bf16 compute is ROADMAP.md, "Memory-driven block sizing, then bf16"',
+    'int8': 'int8 weights are ROADMAP.md, "Opt-in, last"',
+}
 
 
 def _is_dicom(path: str) -> bool:
@@ -107,13 +113,17 @@ def _abs(path: str) -> str:
 def main(cfg: Config) -> Dict[str, object]:
     """Run the DICOM predict path; returns ``{'frames': n, 'seconds':
     {stage: s}}``."""
+    for key, why in _NOT_PORTED.items():
+        if cfg.get(key, False):
+            raise NotImplementedError(f'{key}: true is not ported: {why}')
     data_dir, models_dir, save_dir = (_abs(cfg.data_dir), _abs(cfg.models_dir),
                                       _abs(cfg.save_dir))
     if not _is_dicom(data_dir):
         raise NotImplementedError(
             f'{data_dir} is not a DICOM pullback: octseg_torch predicts DICOM '
             f'pullbacks; the image-directory path (PNG decode, cv2 INTER_LINEAR '
-            f'preprocessing, engine.segment) is ROADMAP.md, queue A item 1')
+            f'preprocessing, engine.segment) is ROADMAP.md, "The image-directory '
+            f'predict path"')
     start = time.perf_counter()
     engine = InferenceEngine(
         models_dir=models_dir, classes=list(cfg.classes),

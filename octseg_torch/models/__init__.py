@@ -24,8 +24,9 @@ def create_model(arch: str, encoder_name: str, classes: int = 1) -> Segmentation
         raise NotImplementedError(
             f'{arch}/{encoder_name} is not ported yet: octseg_torch has '
             f'Unet and UnetPlusPlus over resnet18/34/50/101/152. LinkNet, '
-            f'efficientnet-b7 and timm-regnetx_064 are ROADMAP.md item A2; '
-            f'the other decoders and encoders are item A7.')
+            f'efficientnet-b7 and timm-regnetx_064 are ROADMAP.md "The other two '
+            f'winning models, then the full hybrid ensemble"; the other decoders '
+            f'and encoders are "The rest of the model zoo".')
     encoder = ResNetEncoder(encoder_name)
     decoder = _DECODERS[key](encoder.out_channels)
     return SegmentationModel(encoder, decoder, head_in=16, classes=classes)

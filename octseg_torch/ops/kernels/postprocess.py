@@ -11,7 +11,8 @@ stack of binary masks (M, H, W) float32 it returns ``(fill, ring)``:
 ``postprocess_chain`` computes this in plain torch (ops/morphology.py); it is
 what the CPU runs and what the kernel is held against on the card. The
 kernel is ``csrc/postprocess.cu``: memory-bound (4 B read + 8 B written per
-pixel), every intermediate in shared memory; see the source's note.
+pixel); it packs the masks into 32-pixel words in shared memory, dilates by
+shift-and-OR and blurs in integers; see the source's note.
 
 ``fused_overlay_postprocess`` takes the plain chain for a CPU tensor and
 launches the kernel for a CUDA tensor, on the current stream, without

@@ -9,8 +9,10 @@ at any frame shape, square or not.
 
 ``ops/warp.sample_pair_plain`` computes this in plain torch; it is what the
 CPU runs and what the kernel is held against on the card. The kernel is
-``csrc/warp.cu``: one thread per output pixel, memory-bound (56 B per pixel
-at 3 + 4 channels); see the source's note.
+``csrc/warp.cu``: memory-bound (56 B per pixel at 3 + 4 channels), 32-bit
+indices inside a sample, 16 B mask loads and stores and image stores
+staged through shared memory at 3 + 4 channels, a general path for other
+counts; see the source's note.
 
 ``warp_pair`` takes the plain version for CPU tensors and launches the
 kernel for CUDA tensors, on the current stream, without synchronising.
@@ -68,6 +70,9 @@ def warp_pair(imgs: torch.Tensor, masks: torch.Tensor, mats: torch.Tensor
         raise ValueError('imgs, masks and mats must be contiguous')
     n, h, w, ci = imgs.shape
     cm = masks.shape[3]
+    if h * w * max(ci, cm) >= 2 ** 31:
+        raise ValueError(f'a sample of {h}x{w}x{max(ci, cm)} values does not fit the '
+                         "kernel's 32-bit indices")
     img_out = torch.empty_like(imgs)
     mask_out = torch.empty_like(masks)
     if n * h * w == 0:

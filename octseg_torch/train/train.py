@@ -10,8 +10,9 @@ improves, ``resume.ckpt`` every ``resume_interval`` epochs, and the
 tri-panel examples of ``{data_dir}/vis`` to ``images_per_epoch/``.
 
 Not ported: the JAX package's device mesh and its native C++ loader
-(ROADMAP.md queue A item 10), ``bf16: true`` and ``remat: true`` (item 3);
-each raises NotImplementedError where a config asks for it.
+(ROADMAP.md, "Opt-in, last"), ``bf16: true`` and ``remat: true``
+("Memory-driven block sizing, then bf16"); each raises NotImplementedError
+where a config asks for it.
 
 Config: configs/train.yaml (the reference's keys).
 Usage: python -m octseg_torch.train.train data_dir=<fold> save_dir=<dir>
@@ -50,8 +51,8 @@ from octseg_torch.train.state import TrainState, make_optimizer
 log = logging.getLogger(__name__)
 
 _NOT_PORTED = {
-    'bf16': 'bf16 compute is ROADMAP.md queue A item 3',
-    'remat': 'activation rematerialization is ROADMAP.md queue A item 3',
+    'bf16': 'bf16 compute is ROADMAP.md, "Memory-driven block sizing, then bf16"',
+    'remat': 'activation rematerialization is ROADMAP.md, "Memory-driven block sizing, then bf16"',
 }
 # flax's lecun_normal: a normal truncated at 2 std, rescaled to unit variance
 _TRUNC_STD = 0.87962566103423978
@@ -185,7 +186,7 @@ def train_model(cfg: Config, model_dir: Optional[str] = None,
             raise NotImplementedError(f'{key}: true is not ported: {why}')
     if cfg.get('native_loader', 'auto') is True:
         raise NotImplementedError('native_loader: true is not ported: the native C++ loader '
-                                  'is ROADMAP.md queue A item 10; use auto or false')
+                                  'is ROADMAP.md, "Opt-in, last"; use auto or false')
     classes = list(cfg.classes)
     model_name = cfg.get('model_name') or f'{cfg.architecture}_{cfg.encoder}'
     model_dir = model_dir or os.path.join(cfg.get('save_dir', 'models'), model_name)

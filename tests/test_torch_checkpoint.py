@@ -125,9 +125,9 @@ def test_initialize_model_dir_loads_in_jax(tmp_path):
 
 
 def test_create_model_names_the_roadmap_item_for_unported_pairs():
-    with pytest.raises(NotImplementedError, match='ROADMAP.md item A2'):
+    with pytest.raises(NotImplementedError, match='ROADMAP.md "The other two winning models'):
         create_model('LinkNet', 'efficientnet-b7')
-    with pytest.raises(NotImplementedError, match='ROADMAP.md item A2'):
+    with pytest.raises(NotImplementedError, match='ROADMAP.md "The other two winning models'):
         create_model('Unet', 'timm-regnetx_064')
 
 

@@ -120,16 +120,89 @@ def _test_image(h, w, c):
     return img[..., 0] if c == 1 else img
 
 
-@pytest.mark.parametrize('channels', [1, 3, 4])
-@pytest.mark.parametrize('size', [64, 1000])
-@pytest.mark.parametrize('filters', ['default', 'all'])
-def test_read_png_matches_cv2_imread(tmp_path, channels, size, filters):
-    img = _test_image(size, size, channels)
+def _png_chunk(tag, body):
+    return struct.pack('>I', len(body)) + tag + body + struct.pack('>I', zlib.crc32(tag + body))
+
+
+def _encode_png(samples, depth, color, interlace=False, plte=None, trns=None):
+    """A PNG of integer ``samples`` (H, W, samples per pixel), written here
+    and not by cv2: any colour type and bit depth, optionally Adam7, the
+    rows of each pass cycling through all five filter types."""
+    h, w, spp = samples.shape
+    bpp = max(1, spp * depth // 8)
+
+    def pass_bytes(s):
+        flat = s.reshape(s.shape[0], -1).astype(np.int64)
+        if depth == 16:
+            rows = np.stack([flat >> 8, flat & 255], -1).reshape(len(flat), -1)
+        elif depth == 8:
+            rows = flat
+        else:
+            per = 8 // depth
+            padded = np.zeros((len(flat), -(-flat.shape[1] // per) * per), np.int64)
+            padded[:, :flat.shape[1]] = flat
+            shifts = np.arange(8 - depth, -1, -depth)
+            rows = (padded.reshape(len(flat), -1, per) << shifts).sum(-1)
+        out, prev = b'', np.zeros(rows.shape[1], np.int64)
+        for i, r in enumerate(rows):
+            left = np.concatenate([np.zeros(bpp, np.int64), r[:-bpp]])
+            upleft = np.concatenate([np.zeros(bpp, np.int64), prev[:-bpp]])
+            p = left + prev - upleft
+            pa, pb, pc = np.abs(p - left), np.abs(p - prev), np.abs(p - upleft)
+            paeth = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, prev, upleft))
+            pred = [0 * r, left, prev, (left + prev) // 2, paeth][i % 5]
+            out += bytes([i % 5]) + ((r - pred) & 255).astype(np.uint8).tobytes()
+            prev = r
+        return out
+
+    passes = ([(0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4),
+               (1, 0, 2, 2), (0, 1, 1, 2)] if interlace else [(0, 0, 1, 1)])
+    raw = b''.join(pass_bytes(samples[y0::dy, x0::dx]) for x0, y0, dx, dy in passes
+                   if x0 < w and y0 < h)
+    return (b'\x89PNG\r\n\x1a\n'
+            + _png_chunk(b'IHDR', struct.pack('>IIBBBBB', w, h, depth, color, 0, 0, interlace))
+            + (_png_chunk(b'PLTE', plte.astype(np.uint8).tobytes()) if plte is not None else b'')
+            + (_png_chunk(b'tRNS', trns) if trns is not None else b'')
+            + _png_chunk(b'IDAT', zlib.compress(raw)) + _png_chunk(b'IEND', b''))
+
+
+# PNGs cv2 writes: (samples per pixel, size, filters)
+_CV2_WRITTEN = [(c, size, filters) for filters in ('default', 'all') for size in (64, 1000)
+                for c in (1, 3, 4)]
+# hand-made PNGs: (colour type, bit depth, Adam7); palettes have one entry
+# fewer than their index range (the last index reads black) and a tRNS chunk
+_ENCODED = [(3, 1, 0), (3, 2, 0), (3, 4, 0), (3, 8, 0), (0, 16, 0), (2, 16, 0), (4, 16, 0),
+            (6, 16, 0), (0, 1, 0), (0, 2, 0), (0, 4, 0), (2, 8, 1), (6, 16, 1), (3, 2, 1),
+            (0, 1, 1), (4, 8, 1)]
+_COLOR_NAMES = {0: 'gray', 2: 'rgb', 3: 'palette', 4: 'gray_alpha', 6: 'rgba'}
+
+
+@pytest.mark.parametrize('case', [('cv2', *c) for c in _CV2_WRITTEN]
+                         + [('encoded', *c) for c in _ENCODED],
+                         ids=[f'{f}-{s}-{c}' for c, s, f in _CV2_WRITTEN]
+                         + [f'{_COLOR_NAMES[c]}-{d}bit' + ('-adam7' if i else '')
+                            for c, d, i in _ENCODED])
+def test_read_png_matches_cv2_imread(tmp_path, case):
     path = str(tmp_path / 'x.png')
-    params = [cv2.IMWRITE_PNG_FILTER, cv2.IMWRITE_PNG_ALL_FILTERS] if filters == 'all' else []
-    assert cv2.imwrite(path, img, params)
+    if case[0] == 'cv2':
+        _, channels, size, filters = case
+        img = _test_image(size, size, channels)
+        params = [cv2.IMWRITE_PNG_FILTER, cv2.IMWRITE_PNG_ALL_FILTERS] if filters == 'all' else []
+        assert cv2.imwrite(path, img, params)
+        shape = (size, size, 3)
+    else:
+        _, color, depth, interlace = case
+        spp = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}[color]
+        # 37 x 53: every Adam7 pass is non-empty and no row ends on a byte
+        shape = (37, 53, 3)
+        rng = np.random.default_rng(color * 100 + depth * 2 + interlace)
+        samples = rng.integers(0, 1 << depth, (37, 53, spp))
+        plte = rng.integers(0, 256, ((1 << depth) - 1, 3)) if color == 3 else None
+        with open(path, 'wb') as f:
+            f.write(_encode_png(samples, depth, color, interlace, plte,
+                                b'\x00\x80' if color == 3 else None))
     got = read_png(path)
-    assert got.dtype == np.uint8 and got.shape == (size, size, 3)
+    assert got.dtype == np.uint8 and got.shape == shape
     np.testing.assert_array_equal(got, cv2.imread(path))
 
 
@@ -159,9 +232,13 @@ def test_read_png_all_five_filters_and_speed(tmp_path):
 
 
 def test_read_png_rejects_what_it_does_not_decode(tmp_path):
-    path = str(tmp_path / 'x.png')
-    cv2.imwrite(path, np.zeros((4, 4, 3), np.uint16))
-    with pytest.raises(NotImplementedError):
+    path = str(tmp_path / 'x.jpg')
+    cv2.imwrite(path, np.zeros((4, 4, 3), np.uint8))
+    with pytest.raises(NotImplementedError, match='JPEG'):
+        read_png(path)
+    with open(path, 'wb') as f:
+        f.write(_encode_png(np.zeros((2, 2, 3), np.int64), 4, 2))   # RGB has no 4-bit form
+    with pytest.raises(ValueError, match='bad PNG header'):
         read_png(path)
     with open(path, 'wb') as f:
         f.write(b'GIF89a')

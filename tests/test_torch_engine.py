@@ -22,6 +22,7 @@ from octseg.infer.engine import InferenceEngine as JaxEngine
 from octseg.infer.engine import load_model_bundle as jax_load_model_bundle
 from octseg.ops.normalize import normalize_imagenet
 from octseg.ops.resize import resize_bilinear, resize_nearest
+from octseg.parallel.sharding import make_mesh
 from octseg_torch import resolve_device
 from octseg_torch.infer.engine import MODELS_META, InferenceEngine
 from octseg_torch.train.checkpoint import initialize_model_dir
@@ -177,6 +178,16 @@ def test_engine_arguments_are_checked(models_dir):
     with pytest.raises(TypeError):
         next(InferenceEngine(models_dir, CLASSES, device='cpu').iter_pullback(
             torch.zeros(2, 8, 8, 3, dtype=torch.uint8), OUT))
+
+
+@pytest.mark.parametrize('block_size', [1, 3, 100, 128, 129])
+def test_block_size_is_floored_to_a_power_of_two_as_jax(models_dir, block_size):
+    """octseg floors its per-device quota to a power of two; on one device
+    the block is that quota."""
+    want = JaxEngine(models_dir, CLASSES, block_size=block_size,
+                     mesh=make_mesh(devices=jax.devices()[:1])).block_size
+    got = InferenceEngine(models_dir, CLASSES, block_size=block_size, device='cpu').block_size
+    assert got == want == 1 << (block_size.bit_length() - 1)
 
 
 def test_resolve_device():

@@ -93,8 +93,25 @@ def test_16bit_pullback_is_normalized_per_slice_as_jax(monkeypatch):
 def test_image_directory_is_the_next_slice(models_dir, tmp_path):
     cfg = Config(data_dir=str(tmp_path), models_dir=models_dir, save_dir=str(tmp_path / 'o'),
                  output_size=OUT, classes=CLASSES, device='cpu')
-    with pytest.raises(NotImplementedError, match='ROADMAP.md, queue A item 1'):
+    with pytest.raises(NotImplementedError, match='ROADMAP.md, "The image-directory predict path"'):
         predict.main(cfg)
+
+
+@pytest.mark.parametrize('key', ['bf16', 'int8'])
+def test_unported_precisions_raise_before_any_model_loads(models_dir, tmp_path, monkeypatch,
+                                                          key):
+    dcm = str(tmp_path / 'IMG001')
+    jax_dicom.dcmwrite(dcm, np.zeros((2, 16, 16), np.uint8))
+
+    def no_model(self, name):
+        raise AssertionError(f'model {name} loaded')
+
+    monkeypatch.setattr(predict.InferenceEngine, '_bundle', no_model)
+    cfg = Config(data_dir=dcm, models_dir=models_dir, save_dir=str(tmp_path / 'o'),
+                 output_size=OUT, classes=CLASSES, device='cpu', **{key: True})
+    with pytest.raises(NotImplementedError, match=f'{key}: true is not ported.*ROADMAP.md'):
+        predict.main(cfg)
+    assert not os.path.exists(tmp_path / 'o')
 
 
 def test_render_mask_block_names_and_sizes(tmp_path):

@@ -161,10 +161,13 @@ def test_affine_and_perspective_matrices_match_jax():
 def test_cuda_kernel_matches_plain_version():
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA device: the kernel has no CPU mode')
-    for h, w in ((32, 32), (130, 250), (512, 512)):
+    # the 3 + 4 channel path (W % 4 == 0), and the general one: other channel
+    # counts and widths that are not a multiple of 4
+    for h, w, ci, cm in ((32, 32, 3, 4), (130, 250, 3, 4), (512, 512, 3, 4), (96, 128, 1, 1),
+                         (96, 128, 3, 1), (64, 61, 3, 4)):
         mats = torch.from_numpy(_mats(h, w)).cuda()
         imgs, masks = (torch.from_numpy(a).cuda()
-                       for a in _batch(np.random.default_rng(h), len(mats), h, w))
+                       for a in _batch(np.random.default_rng(h), len(mats), h, w, ci, cm))
         before = k2.launches
         got_i, got_m = k2.warp_pair(imgs, masks, mats)
         torch.cuda.synchronize()
