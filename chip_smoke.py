@@ -9,7 +9,8 @@ Phases, each raising on failure (exit code != 0):
      started together;
   3. K1, the fused overlay postprocess kernel, against its plain torch
      version on the card (ring bit-exact, fill within 1e-5) at the predict
-     path's shape and at test shapes: widths 3, 31, 32, 33 and 1000 (word
+     path's shape (128, 1000, 1000), at 32 and 64 masks of 1000x1000, and
+     at test shapes: widths 3, 31, 32, 33 and 1000 (word
      boundaries), heights 3 and 4, masks all ones, all zeros and touching
      all four borders, three column tiles (2100 px) and 65537 masks; timed
      with CUDA events beside the plain version and the card's bound;
@@ -20,16 +21,25 @@ Phases, each raising on failure (exit code != 0):
      is not a multiple of 4; timed warm and with a cold L2 (its inputs fit
      in the L2) beside the plain version, the bound and F.grid_sample (a
      yardstick the port never calls);
-  5. the predict path at full width: a UnetPlusPlus/resnet101 Lumen model
-     dir at 512 px (random weights from a seed), a 32-frame 704x704
-     grayscale DICOM pullback, ``octseg_torch.infer.predict.main`` with
-     configs/predict.yaml's block size to 1000x1000 overlay PNGs; K1 must
-     launch;
-  5b. the device memory peak of one full block (predict.yaml's
-     ``block_size`` frames) through the engine;
-  6. ensemble routing with three Unet/resnet18 model dirs at 64 px over all
+  5. the predict path at full width: the reference's hybrid ensemble, three
+     model dirs with random weights from seeds 0-2 (LM UnetPlusPlus/resnet101
+     at 512, FC_LC LinkNet/efficientnet-b7 at 896, VV Unet/timm-regnetx_064
+     at 896), a 32-frame 704x704 grayscale DICOM pullback,
+     ``octseg_torch.infer.predict.main`` with configs/predict.yaml's four
+     classes and block size to 1000x1000 overlay PNGs; K1 must launch on
+     frames x classes = 128 masks;
+  5b. blocks of predict.yaml's ``block_size`` frames and of 32 through each
+     model alone, and a full block through the ensemble: each model's
+     probe-chosen chunk, predicted and measured device memory peaks,
+     forward seconds; each model's blocks again with the allocator capped
+     at predicted / CHUNK_MARGIN (must fit) and at predicted / 0.8
+     (recorded); then K1 on the ensemble block's masks, whose buffers must
+     fit in what the forwards freed;
+  6. ensemble routing with the three families at 64 px (UnetPlusPlus/
+     resnet101, LinkNet/efficientnet-b7, Unet/timm-regnetx_064) over all
      four classes, GPU against CPU;
-  7. the Lumen model's logits on 2 frames, GPU (TF32 off) against CPU;
+  7. each ensemble model's logits on 2 frames at its input size, GPU (TF32
+     off) against CPU;
   8. the training path at full width: a synthetic fold of 1000 px frames
      (16 train, 4 test, 2 vis), ``octseg_torch.train.train.main`` for two
      epochs with every other key from configs/train.yaml (Unet/resnet50 at
@@ -63,6 +73,12 @@ FP32_FLOPS = 67e12            # H100 SXM fp32 outside the tensor cores
 K1_BYTES_PER_PIXEL = 12       # 4 B mask read, 4 B fill + 4 B ring written
 K1_OPS_PER_PIXEL = 118        # 2x16 + 2x32 max, 3 complements, 1 product, 2x9 blur
 MAIN_FRAMES, MAIN_FRAME_PX, MAIN_OUT = 32, 704, 1000
+# the reference's ensemble (bench.py): model dir, classes in channel order,
+# architecture, encoder, input size; model dir k gets seed k
+ENSEMBLE = (('LM', ['Lumen'], 'UnetPlusPlus', 'resnet101', 512),
+            ('FC_LC', ['Lipid core', 'Fibrous cap'], 'LinkNet', 'efficientnet-b7', 896),
+            ('VV', ['Vasa vasorum'], 'Unet', 'timm-regnetx_064', 896))
+LOGITS_ATOL = 1e-3            # GPU against CPU, every ensemble model (PERF.md)
 K2_OPS_PER_PIXEL = 60         # coordinates 15, per channel 7 blend or 1 select
 TRAIN_FRAME_PX = 1000         # the dataset's frames (configs/convert_sly_to_int.yaml)
 TRAIN_SPLITS = (16, 4, 2)     # train, test, vis samples of the synthetic fold
@@ -177,7 +193,9 @@ def check_k1(torch):
     from octseg_torch.ops.kernels import postprocess as k1
 
     cases = {
-        'main path': blob_masks(torch, MAIN_FRAMES, MAIN_OUT, MAIN_OUT, 1),
+        # the main path: 32 frames x 4 classes
+        'main path': blob_masks(torch, 4 * MAIN_FRAMES, MAIN_OUT, MAIN_OUT, 1),
+        '32x1000x1000': blob_masks(torch, 32, 1000, 1000, 4),
         '64x1000x1000': blob_masks(torch, 64, 1000, 1000, 2),
         '3x130x250': blob_masks(torch, 3, 130, 250, 3),
         'border 1x64x200': border_masks(torch),
@@ -207,7 +225,7 @@ def check_k1(torch):
         max_abs_err = max(max_abs_err, err)
         ring_exact = ring_exact and exact
     record = {}
-    for name in ('main path', '64x1000x1000'):
+    for name in ('main path', '32x1000x1000', '64x1000x1000'):
         masks = cases[name]
         ms = time_ms(torch, lambda: k1.fused_overlay_postprocess(masks), hold=True)
         plain_ms = time_ms(torch, lambda: k1.postprocess_chain(masks))
@@ -221,8 +239,9 @@ def check_k1(torch):
                       'bound_ms': max(bytes_ms, ops_ms),
                       'bound_by': 'bytes' if bytes_ms >= ops_ms else 'operations'}
         else:
-            record['ms_64'], record['plain_ms_64'] = ms, plain_ms
-            record['bound_ms_64'] = max(bytes_ms, ops_ms)
+            m = masks.shape[0]
+            record[f'ms_{m}'], record[f'plain_ms_{m}'] = ms, plain_ms
+            record[f'bound_ms_{m}'] = max(bytes_ms, ops_ms)
     record.update(max_abs_err=max_abs_err, ring_exact=ring_exact)
     return record
 
@@ -369,84 +388,200 @@ def png_size(path: str):
     return int.from_bytes(head[16:20], 'big'), int.from_bytes(head[20:24], 'big')
 
 
+def make_ensemble(models: str, size_of=None) -> str:
+    """The ENSEMBLE's three model dirs under ``models`` (random weights,
+    seeds 0-2), each at its input size or at ``size_of(name)``."""
+    from octseg_torch.train.checkpoint import initialize_model_dir
+
+    for seed, (name, classes, arch, encoder, size) in enumerate(ENSEMBLE):
+        initialize_model_dir(os.path.join(models, name), classes, arch=arch, encoder=encoder,
+                             input_size=size_of(name) if size_of else size, seed=seed)
+    return models
+
+
 def main_path(tmp: str):
     import torch
 
+    from octseg_torch.core.config import load_config
     from octseg_torch.data import dicom
+    from octseg_torch.data import utils as data_utils
     from octseg_torch.infer.predict import main as predict
     from octseg_torch.ops.kernels import postprocess as k1
     from octseg_torch.ops.kernels import warp as k2
-    from octseg_torch.train.checkpoint import initialize_model_dir
 
-    models = os.path.join(tmp, 'models')
+    classes = list(load_config('predict').classes)
     t = time.perf_counter()
-    initialize_model_dir(os.path.join(models, 'LM'), ['Lumen'], arch='UnetPlusPlus',
-                         encoder='resnet101', input_size=512, seed=0)
+    models = make_ensemble(os.path.join(tmp, 'models'))
     dcm = os.path.join(tmp, 'IMG001')
     dicom.dcmwrite(dcm, synthetic_pullback(MAIN_FRAMES, MAIN_FRAME_PX, 0))
-    log(f'model dir + pullback written in {time.perf_counter() - t:.1f} s')
+    log(f'model dirs + pullback written in {time.perf_counter() - t:.1f} s')
     out = os.path.join(tmp, 'predict')
-    # the command line a user runs; block_size and output_resize come from
-    # configs/predict.yaml
+    # the command line a user runs; classes, block_size and output_resize
+    # come from configs/predict.yaml
     overrides = [f'data_dir={dcm}', f'models_dir={models}', f'save_dir={out}',
-                 f'output_size=[{MAIN_OUT},{MAIN_OUT}]', 'device=cuda', 'classes=[Lumen]']
-    torch.cuda.reset_peak_memory_stats()
-    k1.launches = k2.launches = 0
-    result = predict(overrides=overrides)
-    launches, k2_launches = k1.launches, k2.launches
-    peak = torch.cuda.max_memory_allocated()
+                 f'output_size=[{MAIN_OUT},{MAIN_OUT}]', 'device=cuda']
+    # the render's postprocess calls, to read their shapes and each class's
+    # share of positive pixels (masks stacked frame by frame, classes inner)
+    shapes, positive = [], torch.zeros(len(classes), dtype=torch.float64)
+    postprocess_masks = data_utils.postprocess_masks
+
+    def recorded(m):
+        shapes.append(tuple(m.shape))
+        positive.add_(m.view(-1, len(classes), *m.shape[1:]).double().sum((0, 2, 3)).cpu())
+        return postprocess_masks(m)
+
+    data_utils.postprocess_masks = recorded
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        k1.launches = k2.launches = 0
+        result = predict(overrides=overrides)
+        launches, k2_launches = k1.launches, k2.launches
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        data_utils.postprocess_masks = postprocess_masks
     pngs = sorted(f for f in os.listdir(out) if f.endswith('.png'))
     if len(pngs) != 2 * MAIN_FRAMES:
         raise AssertionError(f'expected {2 * MAIN_FRAMES} PNGs, found {len(pngs)}')
     for f in pngs:
         if png_size(os.path.join(out, f)) != (MAIN_OUT, MAIN_OUT):
             raise AssertionError(f'{f} is not {MAIN_OUT}x{MAIN_OUT}')
-    if launches < 1:
-        raise AssertionError('the main path did not launch the postprocess kernel')
+    want_shapes = [(len(classes) * MAIN_FRAMES, MAIN_OUT, MAIN_OUT)]
+    if launches < 1 or shapes != want_shapes:
+        raise AssertionError(f'the postprocess ran on {shapes} with {launches} K1 launches, '
+                             f'expected {want_shapes} launched')
+    # random weights: a class may be empty, so the shares are a record
+    shares = dict(zip(classes, (positive / (MAIN_FRAMES * MAIN_OUT * MAIN_OUT)).tolist()))
     secs = result['seconds']
-    log(f'main path: {result["frames"]} frames, {launches} K1 and {k2_launches} K2 launches, '
-        f'{result["frames"] / secs["total"]:.2f} frames/s end to end; seconds per '
-        f'stage {json.dumps({k: round(v, 3) for k, v in secs.items()})}; device '
-        f'memory peak {peak / 2**30:.2f} GiB')
-    return {'launches': launches, 'frames': result['frames'], 'seconds': secs,
+    log(f'main path: {result["frames"]} frames, classes {classes}, {launches} K1 launch(es) '
+        f'on {shapes}, {k2_launches} K2 launches, {result["frames"] / secs["total"]:.2f} '
+        f'frames/s end to end; seconds per stage '
+        f'{json.dumps({k: round(v, 3) for k, v in secs.items()})}; chunks {result["chunks"]}; '
+        f'device memory peak {peak / 2**30:.2f} GiB; positive share per class '
+        f'{json.dumps({k: round(v, 4) for k, v in shares.items()})}')
+    return {'launches': launches, 'k1_shapes': shapes, 'frames': result['frames'],
+            'seconds': secs, 'chunks': result['chunks'], 'positive_share': shares,
             'peak_allocated_bytes': peak, 'dcm': dcm, 'models': models}
 
 
 def block_memory(main):
-    """Device memory peak of one block of predict.yaml's ``block_size``
-    frames (the main path's pullback repeated) through the engine."""
+    """Blocks of the main path's pullback (repeated) through each ensemble
+    model alone, at predict.yaml's ``block_size`` frames and at the main
+    path's 32, and one full block through the ensemble: each model's chunk
+    as the engine's probe chose it, the predicted and the measured device
+    memory peaks (a second pass over the block, after the probe) and that
+    pass's seconds; then K1 on the ensemble's masks of the full block, which
+    must fit in the memory the forwards released to the allocator's cache.
+
+    The engine's margin: each model's block runs again with the allocator
+    allowed to reserve only its predicted peak / CHUNK_MARGIN, which must
+    fit, and only its predicted peak / 0.8, which is recorded (out of
+    memory or its peak)."""
+    import gc
+
     import numpy as np
     import torch
 
     from octseg_torch.core.config import load_config
-    from octseg_torch.infer.engine import InferenceEngine
+    from octseg_torch.core.registry import CLASS_IDS
+    from octseg_torch.data.utils import postprocess_masks
+    from octseg_torch.infer.engine import CHUNK_MARGIN, InferenceEngine
     from octseg_torch.infer.predict import load_pullback_frames
 
     cfg = load_config('predict')
-    block = int(cfg.block_size)
+    block, classes = int(cfg.block_size), list(cfg.classes)
     frames = load_pullback_frames(main['dcm'])
     frames = np.tile(frames, (-(-block // frames.shape[0]), 1, 1, 1))[:block]
-    engine = InferenceEngine(main['models'], ['Lumen'], block_size=block,
-                             output_resize=str(cfg.get('output_resize', 'prob_bilinear')),
-                             device='cuda')
-    torch.cuda.empty_cache()
+    total = torch.cuda.get_device_properties(0).total_memory
+    out = (MAIN_OUT, MAIN_OUT)
+
+    def run(run_classes, n):
+        engine = InferenceEngine(main['models'], run_classes, block_size=block,
+                                 output_resize=str(cfg.get('output_resize', 'prob_bilinear')),
+                                 device='cuda')
+        gc.collect()
+        torch.cuda.empty_cache()
+        blocks = [m.shape[0] for _s, m in engine.iter_pullback(frames[:n], out)]   # probes
+        if blocks != [n]:
+            raise AssertionError(f'expected one block of {n} frames, got {blocks}')
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        masks = [m for _s, m in engine.iter_pullback(frames[:n], out)][0]
+        rec = {'frames': n, 'seconds': time.perf_counter() - t,
+               'peak_allocated_bytes': torch.cuda.max_memory_allocated(),
+               'peak_reserved_bytes': torch.cuda.max_memory_reserved(),
+               'plans': {key[0]: plan._asdict() for key, plan in engine.chunk_plans.items()}}
+        if rec['peak_reserved_bytes'] >= total:
+            raise AssertionError(f'{run_classes}: peak {rec} over the card\'s {total} bytes')
+        return rec, masks, engine
+
+    def capped(engine, n, predicted, ratio, must_fit):
+        """The block's peak allocation with the allocator capped at
+        ``predicted / ratio``; None when it runs out of memory."""
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.set_per_process_memory_fraction(min(1.0, predicted / ratio / total))
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            list(engine.iter_pullback(frames[:n], out))
+            return torch.cuda.max_memory_allocated()
+        except torch.OutOfMemoryError:
+            if must_fit:
+                raise
+            return None
+        finally:
+            torch.cuda.set_per_process_memory_fraction(1.0)
+
+    records = {'block_size': block, 'device_total_bytes': total, 'models': {}}
+    for name, model_classes, arch, encoder, size in ENSEMBLE:
+        records['models'][name] = {'model': f'{arch}/{encoder}', 'input_size': size}
+        for n in (block, MAIN_FRAMES):
+            rec, _, engine = run(model_classes, n)
+            plan = rec['plans'][name]
+            if plan['bytes_per_frame'] is None:
+                raise AssertionError(f'{name}: the engine chose its chunk without a probe')
+            for ratio in (CHUNK_MARGIN, 0.8):
+                rec[f'peak_allocated_bytes_capped_at_{ratio}'] = capped(
+                    engine, n, plan['predicted_peak_bytes'], ratio, ratio == CHUNK_MARGIN)
+            del engine
+            records['models'][name][str(n)] = rec
+            caps = [rec[f'peak_allocated_bytes_capped_at_{r}'] for r in (CHUNK_MARGIN, 0.8)]
+            log(f'one {n}-frame block, {name} {arch}/{encoder} at {size} fp32: chunk '
+                f'{plan["chunk"]}, {plan["bytes_per_frame"] / 2**20:.1f} MiB per frame fitted; '
+                f'peak allocated predicted {plan["predicted_peak_bytes"] / 2**30:.2f} GiB, '
+                f'measured {rec["peak_allocated_bytes"] / 2**30:.2f} GiB (reserved '
+                f'{rec["peak_reserved_bytes"] / 2**30:.2f} GiB) of {total / 2**30:.2f} GiB; '
+                f'budget {plan["budget_bytes"] / 2**30:.2f} GiB; {rec["seconds"]:.2f} s '
+                f'({n / rec["seconds"]:.1f} frames/s, forward and bit expansion); peak allocated '
+                f'capped at predicted / {CHUNK_MARGIN}: {caps[0] / 2**30:.2f} GiB, at predicted '
+                f'/ 0.8: ' + ('out of memory' if caps[1] is None else f'{caps[1] / 2**30:.2f} GiB'))
+            gc.collect()
+    rec, masks, _engine = run(classes, block)
+    records['ensemble'] = rec
+    # the render's postprocess on this block: (frames x classes, H, W)
+    sel = masks[..., [CLASS_IDS[c] - 1 for c in classes]]
+    m = torch.from_numpy(np.ascontiguousarray(sel.transpose(0, 3, 1, 2))).reshape(
+        -1, *out).cuda()
+    torch.cuda.synchronize()
+    reserved = torch.cuda.memory_reserved()
     torch.cuda.reset_peak_memory_stats()
-    t = time.perf_counter()
-    blocks = [masks.shape[0] for _start, masks in
-              engine.iter_pullback(frames, (MAIN_OUT, MAIN_OUT))]
-    seconds = time.perf_counter() - t
-    if blocks != [block]:
-        raise AssertionError(f'expected one block of {block} frames, got {blocks}')
-    record = {'block_size': block, 'frame_px': MAIN_FRAME_PX, 'seconds': seconds,
-              'peak_allocated_bytes': torch.cuda.max_memory_allocated(),
-              'peak_reserved_bytes': torch.cuda.max_memory_reserved(),
-              'device_total_bytes': torch.cuda.get_device_properties(0).total_memory}
-    log(f'one {block}-frame block, UnetPlusPlus/resnet101 at 512 fp32: '
-        f'{seconds:.2f} s, peak allocated '
-        f'{record["peak_allocated_bytes"] / 2**30:.2f} GiB, reserved '
-        f'{record["peak_reserved_bytes"] / 2**30:.2f} GiB of '
-        f'{record["device_total_bytes"] / 2**30:.2f} GiB')
-    return record
+    fill, ring = postprocess_masks(m)
+    torch.cuda.synchronize()
+    k1 = {'masks': list(m.shape), 'peak_allocated_bytes': torch.cuda.max_memory_allocated(),
+          'reserved_before_bytes': reserved,
+          'peak_reserved_bytes': torch.cuda.max_memory_reserved()}
+    del fill, ring, m
+    records['k1_on_block'] = k1
+    log(f'one {block}-frame block, the ensemble over {classes}: {rec["seconds"]:.2f} s; peak '
+        f'allocated {rec["peak_allocated_bytes"] / 2**30:.2f} GiB, reserved '
+        f'{rec["peak_reserved_bytes"] / 2**30:.2f} GiB; chunks '
+        f'{ {k: v["chunk"] for k, v in rec["plans"].items()} }; K1 on {k1["masks"]}: peak '
+        f'allocated {k1["peak_allocated_bytes"] / 2**30:.2f} GiB, reserved '
+        f'{k1["reserved_before_bytes"] / 2**30:.2f} -> {k1["peak_reserved_bytes"] / 2**30:.2f} GiB')
+    if k1['peak_allocated_bytes'] > rec['peak_allocated_bytes']:
+        raise AssertionError('the postprocess buffers of a block outgrow its forwards\' peak: '
+                             'the engine\'s chunk budget must count them')
+    return records
 
 
 def probabilities(engine, name, frames, out_size):
@@ -470,18 +605,36 @@ def probabilities(engine, name, frames, out_size):
         return resize(probs, out_size).numpy()
 
 
+def soften_heads(models: str) -> None:
+    """Scale each model dir's head kernel by 1/20 and draw its bias from
+    N(0, 0.5). With random weights on the reference's 0..255 inputs the
+    models saturate (|logit| about 40): bilinear weights of exactly 1/2
+    between p = 0 and p = 1 then put pixels at p = 0.5, and LinkNet's pixels
+    whose last ReLU features are all 0 have a logit of exactly the zero bias;
+    either fills the near-0.5 share the routing check caps."""
+    import numpy as np
+
+    from octseg_torch.train.checkpoint import load_weights, save_weights
+
+    for seed, (name, *_rest) in enumerate(ENSEMBLE):
+        path = os.path.join(models, name, 'weights.ckpt')
+        variables = load_weights(path)
+        head = variables['params']['head']['Conv_0']
+        head['kernel'] = head['kernel'] / 20
+        head['bias'] = np.random.default_rng(seed).normal(0, 0.5, head['bias'].shape).astype(
+            np.float32)
+        save_weights(path, variables['params'], variables['batch_stats'])
+
+
 def routing(tmp: str):
+    """The three ensemble families at 64 px over all four classes, GPU
+    against CPU, in both output modes."""
     import numpy as np
 
     from octseg_torch.infer.engine import MODELS_META, InferenceEngine
-    from octseg_torch.train.checkpoint import initialize_model_dir
 
-    models = os.path.join(tmp, 'small')
-    for seed, (name, classes) in enumerate((('LM', ['Lumen']),
-                                            ('FC_LC', ['Lipid core', 'Fibrous cap']),
-                                            ('VV', ['Vasa vasorum']))):
-        initialize_model_dir(os.path.join(models, name), classes, 'Unet', 'resnet18',
-                             input_size=64, seed=seed)
+    models = make_ensemble(os.path.join(tmp, 'small'), size_of=lambda name: 64)
+    soften_heads(models)
     classes = list(MODELS_META)
     frames = np.random.default_rng(5).integers(0, 255, (8, 100, 90, 3), dtype=np.uint8)
     out_size = (80, 72)
@@ -510,6 +663,8 @@ def routing(tmp: str):
 
 
 def logits_gpu_vs_cpu(main):
+    """Each ensemble model's logits on the pullback's first 2 frames at its
+    input size, GPU (TF32 off) against CPU, within LOGITS_ATOL."""
     import numpy as np
     import torch
 
@@ -518,25 +673,27 @@ def logits_gpu_vs_cpu(main):
     from octseg_torch.ops.normalize import normalize_imagenet
     from octseg_torch.ops.resize import resize_bilinear_nchw
 
-    frames = np.array(dicom.dcmread(main['dcm']).pixel_array[:2])
-    x = torch.from_numpy(frames).float()[:, None]
-    x = resize_bilinear_nchw(x, (512, 512)).expand(-1, 3, -1, -1)
-    x = normalize_imagenet(x, channel_dim=1).contiguous()
-    out = {}
-    for device in ('cuda', 'cpu'):
-        model, _cfg = load_model_bundle(os.path.join(main['models'], 'LM'), device)
-        with torch.inference_mode(), fp32_exact():
-            if device == 'cuda':
-                log(f'cudnn allow_tf32 in the forward: {torch.backends.cudnn.allow_tf32}')
-            out[device] = model(x.to(device)).float().cpu()
-        del model
-    err = float((out['cuda'] - out['cpu']).abs().max())
-    scale = float(out['cpu'].abs().max())
-    log(f'LM logits (2, 1, 512, 512) GPU vs CPU: max |delta| {err:.3g} '
-        f'(max |logit| {scale:.3g})')
-    if not err <= 1e-3:
-        raise AssertionError(f'GPU and CPU logits differ by {err}')
-    return err
+    frames = torch.from_numpy(np.array(dicom.dcmread(main['dcm']).pixel_array[:2])).float()
+    record = {}
+    for name, classes, arch, encoder, size in ENSEMBLE:
+        x = resize_bilinear_nchw(frames[:, None], (size, size)).expand(-1, 3, -1, -1)
+        x = normalize_imagenet(x, channel_dim=1).contiguous()
+        out = {}
+        for device in ('cuda', 'cpu'):
+            model, _cfg = load_model_bundle(os.path.join(main['models'], name), device)
+            with torch.inference_mode(), fp32_exact():
+                if device == 'cuda':
+                    log(f'cudnn allow_tf32 in the forward: {torch.backends.cudnn.allow_tf32}')
+                out[device] = model(x.to(device)).float().cpu()
+            del model
+        err = float((out['cuda'] - out['cpu']).abs().max())
+        scale = float(out['cpu'].abs().max())
+        log(f'{name} {arch}/{encoder} logits {tuple(out["cpu"].shape)} GPU vs CPU: max |delta| '
+            f'{err:.3g} (max |logit| {scale:.3g}), bound {LOGITS_ATOL}')
+        if not err <= LOGITS_ATOL:
+            raise AssertionError(f'{name}: GPU and CPU logits differ by {err}')
+        record[name] = {'max_abs_delta': err, 'max_abs_logit': scale}
+    return record
 
 
 def train_path(tmp: str):
@@ -809,7 +966,7 @@ def main() -> int:
         main = phases.run('predict path', main_path, tmp)
         memory = phases.run('block memory', block_memory, main)
         share = phases.run('routing GPU vs CPU', routing, tmp)
-        logit_err = phases.run('logits GPU vs CPU', logits_gpu_vs_cpu, main)
+        logits = phases.run('logits GPU vs CPU', logits_gpu_vs_cpu, main)
         train = phases.run('training path', train_path, tmp)
         step_gaps = phases.run('train step GPU vs CPU', train_step_gpu_vs_cpu)
     finally:
@@ -827,6 +984,8 @@ def main() -> int:
         'plain_ms': k1['plain_ms'],
         'bound_ms': k1['bound_ms'], 'bound_by': k1['bound_by'],
         'library_ms': None,
+        'ms_32x1000x1000': k1['ms_32'], 'plain_ms_32x1000x1000': k1['plain_ms_32'],
+        'bound_ms_32x1000x1000': k1['bound_ms_32'],
         'ms_64x1000x1000': k1['ms_64'], 'plain_ms_64x1000x1000': k1['plain_ms_64'],
         'bound_ms_64x1000x1000': k1['bound_ms_64'],
     }, {
@@ -846,11 +1005,12 @@ def main() -> int:
         'library_ms_cold_l2': k2['library_ms_cold_l2'],
     }]
     print(json.dumps({'kernels': kernels,
-                      'predict_path': {'frames': main['frames'], 'seconds': main['seconds'],
-                                       'peak_allocated_bytes': main['peak_allocated_bytes']},
+                      'predict_path': {k: main[k] for k in (
+                          'frames', 'seconds', 'chunks', 'k1_shapes', 'positive_share',
+                          'peak_allocated_bytes')},
                       'block_memory': memory,
                       'routing_near_half_share': share,
-                      'logits_max_abs_delta': logit_err,
+                      'logits_gpu_vs_cpu': logits,
                       'training_path': train,
                       'train_step_gpu_vs_cpu': step_gaps}), flush=True)
     log(f'total {time.perf_counter() - phases.t0:.1f} s')

@@ -14,10 +14,26 @@ with pinned host buffers, ``non_blocking`` copies and CUDA events: block
 k+1's upload and forward are queued before block k's bits are expanded on
 the host.
 
-Not ported: bf16 and memory-driven block sizing (ROADMAP.md, "Memory-driven
-block sizing, then bf16"); the device mesh, int8 and AOT exports ("Opt-in,
-last"). The block is ``block_size`` floored to a power of two, as the
-reference floors it on one device.
+The block is ``block_size`` floored to a power of two, as the reference
+floors it on one device. Each model runs the block in chunks (octseg's
+``_block_for`` and chunked dispatch, on one card): the largest chunk, the
+block and then the powers of two below it, whose peak device memory fits.
+The peak is predicted from a measured probe, not from a caught
+out-of-memory error: the model's forward runs on zeros at two small chunk
+sizes, a line through their peak allocations gives fixed bytes plus bytes
+per frame, and the chunk's predicted peak must fit CHUNK_MARGIN of the
+device memory still free (``torch.cuda.mem_get_info`` plus the allocator's
+cached, unallocated bytes) less what the block's pipeline keeps resident
+beside it. Every model of the plan is loaded before the probe, so its
+parameters are already allocated and outside that free memory. The render's
+postprocess buffers (fill and ring, 12 B per mask pixel) are not counted:
+they are allocated after the block's forwards have returned their
+activations to the allocator's cache, and reuse it (chip_smoke.py's block
+memory phase checks this). On the CPU there is no probe: the chunk is the
+block.
+
+Not ported: bf16 (ROADMAP.md, "Memory-driven block sizing, then bf16"); the
+device mesh, int8 and AOT exports ("Opt-in, last").
 
 fp32 convolutions run with TF32 off (``torch.backends.cudnn.flags(...,
 allow_tf32=False)``) and so do matmuls (``torch.backends.cuda.matmul
@@ -30,7 +46,7 @@ import contextlib
 import json
 import logging
 import os
-from typing import Dict, Iterator, Sequence, Tuple
+from typing import Dict, Iterator, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -54,6 +70,50 @@ MODELS_META = {
     'Fibrous cap': {'model_dir': 'FC_LC', 'index': 1},
     'Vasa vasorum': {'model_dir': 'VV', 'index': 0},
 }
+
+
+# the share of the free device memory a chunk's predicted allocation may
+# take: the caching allocator reserves up to about 1.5x what is allocated
+# (split and rounded segments). Measured on an H100 with each ensemble model
+# at 32 and 128 frames, allowed to reserve only the predicted peak / 0.8,
+# most runs ran out of memory, and at / 0.7 one did (PERF.md, section 6);
+# chip_smoke.py checks that every run fits at / CHUNK_MARGIN. Above the
+# prediction, a forward also takes spare memory when there is some (a
+# 32-frame UNet++/resnet101 block peaks at about 2.7x its prediction on an
+# idle card) and does without it under such a cap.
+CHUNK_MARGIN = 0.6
+PROBE_CHUNKS = (2, 4)
+
+
+class ChunkPlan(NamedTuple):
+    """One model's chunk for one block shape. On the GPU also the fitted
+    bytes per frame, the predicted peak of device memory allocated while a
+    chunk runs (resident bytes included) and the budget a chunk's own
+    allocations had to fit; None on the CPU."""
+    chunk: int
+    bytes_per_frame: Optional[float] = None
+    predicted_peak_bytes: Optional[int] = None
+    budget_bytes: Optional[int] = None
+
+
+def choose_chunk(block: int, probes: Sequence[Tuple[int, int]], budget: int
+                 ) -> Tuple[int, float, float]:
+    """(chunk, bytes per frame, predicted bytes): the largest chunk, ``block``
+    and then the powers of two below it, whose allocation predicted by the
+    line through ``probes`` ((frames, peak bytes), two of them) fits
+    ``budget``. Raises RuntimeError when even a chunk of 1 does not."""
+    (c1, b1), (c2, b2) = probes
+    per_frame = max((b2 - b1) / (c2 - c1), 0.0)
+    fixed = b1 - per_frame * c1
+    chunk = block
+    while fixed + per_frame * chunk > budget:
+        if chunk == 1:
+            raise RuntimeError(
+                f'one frame needs {(fixed + per_frame) / 2**30:.2f} GiB of device memory '
+                f'and {budget / 2**30:.2f} GiB are free for it: unload other models or use '
+                f'a larger card')
+        chunk = 1 << ((chunk - 1).bit_length() - 1)
+    return chunk, per_frame, fixed + per_frame * chunk
 
 
 @contextlib.contextmanager
@@ -103,6 +163,8 @@ class InferenceEngine:
         self.block_size = 1 << (int(block_size).bit_length() - 1)
         self.device = resolve_device(device)
         self._bundles: Dict[str, tuple] = {}
+        # (model dir, block frame shape, output size) -> ChunkPlan
+        self.chunk_plans: Dict[tuple, ChunkPlan] = {}
 
     def _bundle(self, model_dir_name: str):
         if model_dir_name not in self._bundles:
@@ -142,6 +204,51 @@ class InferenceEngine:
                 return pack_mask_bits(masks.permute(0, 2, 3, 1))
 
         return forward
+
+    def _memory_probe(self, forward, frame_shape: Sequence[int]
+                      ) -> Optional[Tuple[List[Tuple[int, int]], int, int]]:
+        """On the GPU: ([(frames, peak bytes)] of ``forward`` on zeros at
+        PROBE_CHUNKS frames, peaks counted above the allocation before each
+        run; the bytes allocated now; the bytes that can still be allocated).
+        None on the CPU. Resets the device's peak-memory counter."""
+        if self.device.type != 'cuda':
+            return None
+        samples = []
+        for c in PROBE_CHUNKS:
+            x = torch.zeros((c, *frame_shape[1:]), dtype=torch.uint8, device=self.device)
+            torch.cuda.synchronize(self.device)
+            before = torch.cuda.memory_allocated(self.device)
+            torch.cuda.reset_peak_memory_stats(self.device)
+            forward(x)
+            torch.cuda.synchronize(self.device)
+            samples.append((c, torch.cuda.max_memory_allocated(self.device) - before))
+            del x
+        allocated = torch.cuda.memory_allocated(self.device)
+        free, _total = torch.cuda.mem_get_info(self.device)
+        return samples, allocated, free + torch.cuda.memory_reserved(self.device) - allocated
+
+    def _chunk_for(self, name: str, forward, frame_shape: Sequence[int],
+                   out_hw: Tuple[int, int], resident: int) -> int:
+        """The chunk ``name`` runs a block of ``frame_shape`` in, decided once
+        per (model, block frame shape, output size); ``resident``: device
+        bytes the pipeline holds beside a chunk that are not allocated yet."""
+        key = (name, tuple(frame_shape), tuple(out_hw))
+        if key not in self.chunk_plans:
+            probe = self._memory_probe(forward, frame_shape)
+            if probe is None:
+                plan = ChunkPlan(int(frame_shape[0]))
+                log.info('%s: chunk %d (no probe on %s)', name, plan.chunk, self.device)
+            else:
+                samples, allocated, available = probe
+                budget = int(CHUNK_MARGIN * (available - resident))
+                chunk, per_frame, predicted = choose_chunk(int(frame_shape[0]), samples, budget)
+                plan = ChunkPlan(chunk, per_frame, int(allocated + resident + predicted), budget)
+                log.info('%s: chunk %d of %d frames, %.1f MiB per frame fitted, predicted '
+                         'peak %.2f GiB allocated, budget %.2f GiB', name, chunk,
+                         frame_shape[0], per_frame / 2**20, plan.predicted_peak_bytes / 2**30,
+                         budget / 2**30)
+            self.chunk_plans[key] = plan
+        return self.chunk_plans[key].chunk
 
     @staticmethod
     def _as_mono_if_gray(frames: np.ndarray) -> np.ndarray:
@@ -183,9 +290,18 @@ class InferenceEngine:
             return
         plan = self._ensemble_plan()
         frames = self._as_mono_if_gray(frames)
-        runs = {name: self._forward_fn(name, out_h, out_w) for name in plan}
+        # every model is loaded before any is probed
+        forwards = {name: self._forward_fn(name, out_h, out_w) for name in plan}
         eb = min(self.block_size, n)
         cuda = self.device.type == 'cuda'
+        # beside a chunk: two blocks' device copies and two blocks' packed
+        # outputs of every model (pipeline depth 1)
+        packed_bytes = sum(eb * out_h * ((out_w + 7) // 8) * len(self._bundle(name)[1]['classes'])
+                           for name in plan)
+        resident = 2 * (eb * int(np.prod(frames.shape[1:])) + packed_bytes)
+        block_shape = (eb, *frames.shape[1:])
+        runs = {name: (fwd, self._chunk_for(name, fwd, block_shape, (out_h, out_w), resident))
+                for name, fwd in forwards.items()}
         # two pinned upload slots: block k fills slot k % 2 while the copy
         # of block k - 1 from the other slot may still be in flight
         slots = [torch.empty((eb, *frames.shape[1:]), dtype=torch.uint8,
@@ -197,8 +313,9 @@ class InferenceEngine:
             host.numpy()[...] = frames[start:start + take]
             dev = host.to(self.device, non_blocking=True)
             outs = {}
-            for name, fwd in runs.items():
-                packed = fwd(dev)
+            for name, (fwd, chunk) in runs.items():
+                parts = [fwd(dev[s:s + chunk]) for s in range(0, take, chunk)]
+                packed = parts[0] if len(parts) == 1 else torch.cat(parts)
                 outs[name] = packed.to('cpu', non_blocking=True) if cuda else packed
             event = None
             if cuda:

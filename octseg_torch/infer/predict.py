@@ -8,7 +8,7 @@ slice of the port (ROADMAP.md, "The image-directory predict path").
 
 Config: configs/predict.yaml (the reference's keys).
 Usage: python -m octseg_torch.infer.predict data_dir=<pullback.dcm> \\
-    models_dir=... save_dir=... output_size=[1000,1000] classes=[Lumen]
+    models_dir=... save_dir=... output_size=[1000,1000]
 ``device`` (default ``auto``: the GPU) may be ``cpu``.
 """
 
@@ -112,7 +112,7 @@ def _abs(path: str) -> str:
 @entry_point('predict')
 def main(cfg: Config) -> Dict[str, object]:
     """Run the DICOM predict path; returns ``{'frames': n, 'seconds':
-    {stage: s}}``."""
+    {stage: s}, 'chunks': {model dir: frames per forward}}``."""
     for key, why in _NOT_PORTED.items():
         if cfg.get(key, False):
             raise NotImplementedError(f'{key}: true is not ported: {why}')
@@ -136,7 +136,8 @@ def main(cfg: Config) -> Dict[str, object]:
     log.info('Pullback frames: %d', n)
     log.info('Seconds per stage: %s', {k: round(v, 3) for k, v in seconds.items()})
     log.info('Complete')
-    return {'frames': n, 'seconds': seconds}
+    chunks = {name: plan.chunk for (name, _shape, _out), plan in engine.chunk_plans.items()}
+    return {'frames': n, 'seconds': seconds, 'chunks': chunks}
 
 
 if __name__ == '__main__':

@@ -2,8 +2,8 @@
 
 The port of octseg/models/base.py. NCHW in, NCHW multilabel logits out, one
 channel per class in the order of the model's ``classes``. The head is SMP's
-``segmentation_head.0`` conv (with bias); Unet and UNet++ need no head
-upsampling.
+``segmentation_head.0`` conv (with bias, kernel 3 or 1); Unet, UNet++ and
+LinkNet end at full resolution, so it needs no upsampling.
 """
 
 from __future__ import annotations

@@ -317,9 +317,15 @@ def restore_weights_into(model, path: str, architecture: str, encoder: str) -> N
     _load_checked(model, sd, path)
 
 
+# torchvision's resnet ``fc``, timm's RegNet ``head.fc``, efficientnet-pytorch's
+# ``_conv_head``/``_bn1``/``_fc`` (its blocks are ``_blocks.*``)
+_CLASSIFIER_TAILS = ('fc.', 'head.fc.', '_conv_head.', '_bn1.', '_fc.')
+
+
 def load_pretrained_encoder(model, path: str) -> None:
-    """Load a local torch state dict (a torchvision/SMP encoder, a full SMP
-    model or a Lightning checkpoint) into ``model.encoder``; the port's
+    """Load a local torch state dict (a torchvision, timm or
+    efficientnet-pytorch encoder, a full SMP model or a Lightning
+    checkpoint) into ``model.encoder``; the port's
     module names are SMP's, so this is ``load_state_dict`` after the prefix
     handling of octseg's ``load_pretrained_encoder``."""
     import torch
@@ -332,8 +338,8 @@ def load_pretrained_encoder(model, path: str) -> None:
         pre = 'model.encoder.' if any(k.startswith('model.encoder.') for k in sd) \
             else 'encoder.'
         sd = {k[len(pre):]: v for k, v in sd.items() if k.startswith(pre)}
-    # torchvision classifiers carry a head the encoder has not
-    sd = {k: v for k, v in sd.items() if not k.startswith('fc.')}
+    # classifier tails the encoder has not, as octseg's converters drop them
+    sd = {k: v for k, v in sd.items() if not k.startswith(_CLASSIFIER_TAILS)}
     own = model.encoder.state_dict()
     for k in own:  # torchvision files predate num_batches_tracked
         if k.endswith('num_batches_tracked') and k not in sd:
@@ -403,9 +409,12 @@ def initialize_model_dir(model_dir: str, classes, arch: str = 'Unet',
                          seed: int = 0) -> str:
     """Create a model dir (weights.ckpt + config.json, the reference layout)
     with random weights drawn from ``torch.Generator().manual_seed(seed)``:
-    conv weights N(0, 1/fan_in), conv biases 0, BatchNorm at its identity
-    (scale 1, bias 0, mean 0, var 1), as flax initializes them. For tests and
-    smoke runs; training writes real weights."""
+    conv and transposed-conv weights N(0, 1/fan_in), conv biases 0,
+    BatchNorm at its identity (scale 1, bias 0, mean 0, var 1), as flax
+    initializes them. ``weight[0]`` holds one fan-in: (I / groups)·kH·kW
+    of a conv, O·kH·kW of a transposed conv, whose flax kernel (kH, kW, O, I)
+    has lecun fan-in kH·kW·O. For tests and smoke runs; training writes
+    real weights."""
     import torch
 
     from octseg_torch.models import create_model
@@ -416,7 +425,7 @@ def initialize_model_dir(model_dir: str, classes, arch: str = 'Unet',
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for mod in model.modules():
-            if isinstance(mod, torch.nn.Conv2d):
+            if isinstance(mod, (torch.nn.Conv2d, torch.nn.ConvTranspose2d)):
                 mod.weight.normal_(0.0, (1.0 / mod.weight[0].numel()) ** 0.5,
                                    generator=gen)
                 if mod.bias is not None:

@@ -60,13 +60,14 @@ _TRUNC_STD = 0.87962566103423978
 
 def init_model(model: nn.Module, seed: int) -> nn.Module:
     """Flax's initialization of octseg's models, drawn from
-    ``torch.Generator().manual_seed(seed)``: conv kernels lecun-normal
-    (truncated normal, variance 1/fan_in), conv biases 0, BatchNorm at its
-    identity. The draws differ from jax.random's."""
+    ``torch.Generator().manual_seed(seed)``: conv and transposed-conv
+    kernels lecun-normal (truncated normal, variance 1/fan_in, fan_in =
+    ``weight[0].numel()``, see checkpoint.initialize_model_dir), conv biases
+    0, BatchNorm at its identity. The draws differ from jax.random's."""
     gen = torch.Generator().manual_seed(int(seed))
     with torch.no_grad():
         for mod in model.modules():
-            if isinstance(mod, nn.Conv2d):
+            if isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d)):
                 std = math.sqrt(1.0 / mod.weight[0].numel()) / _TRUNC_STD
                 nn.init.trunc_normal_(mod.weight, 0.0, std, -2 * std, 2 * std, generator=gen)
                 if mod.bias is not None:

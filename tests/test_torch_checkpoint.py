@@ -2,7 +2,9 @@
 
 - the port's msgpack codec against flax's (both directions, byte-identical);
 - the weights bridge: port state_dict -> octseg.models.convert_torch
-  .convert_checkpoint -> octseg_torch variables_to_state_dict is bit-exact;
+  .convert_checkpoint -> octseg_torch variables_to_state_dict is bit-exact,
+  for each ported encoder family and decoder;
+- the initializer draws every conv and transposed conv from its seed;
 - the port's YAML-subset reader against yaml.safe_load on the repo's configs.
 """
 
@@ -17,12 +19,15 @@ from flax import serialization
 
 import octseg
 from octseg.core import config as jax_config
+from octseg.models import create_model as jax_create_model
 from octseg.models.convert_torch import convert_checkpoint
 from octseg.train import checkpoint as jax_checkpoint
 from octseg_torch.core import config as torch_config
 from octseg_torch.models import create_model
 from octseg_torch.models.convert import state_dict_to_variables, variables_to_state_dict
+from octseg_torch.models.encoders import create_encoder
 from octseg_torch.train import checkpoint as torch_checkpoint
+from octseg_torch.train.train import init_model
 
 
 def _tree(seed=0):
@@ -93,7 +98,9 @@ def _random_state_dict(arch, encoder, seed):
 
 @pytest.mark.parametrize('arch,encoder', [
     ('Unet', 'resnet18'), ('UnetPlusPlus', 'resnet18'), ('Unet', 'resnet50'),
-    ('UnetPlusPlus', 'resnet101'),
+    ('UnetPlusPlus', 'resnet101'), ('LinkNet', 'resnet18'), ('LinkNet', 'efficientnet-b0'),
+    ('Unet', 'timm-regnetx_002'), ('Unet', 'timm-regnety_120'),
+    ('LinkNet', 'efficientnet-b7'), ('Unet', 'timm-regnetx_064'),
 ])
 def test_bridge_round_trip_through_convert_checkpoint(arch, encoder):
     sd = _random_state_dict(arch, encoder, seed=3)
@@ -105,6 +112,8 @@ def test_bridge_round_trip_through_convert_checkpoint(arch, encoder):
         np.testing.assert_array_equal(back[k], sd[k], err_msg=k)
     # the inverse builds exactly the tree convert_checkpoint builds
     _assert_tree_equal(state_dict_to_variables(sd, arch, encoder), variables)
+    # and the result loads with no missing, unexpected or misshapen key
+    torch_checkpoint._load_checked(create_model(arch, encoder, classes=2), back, 'bridge')
 
 
 def test_bridge_loads_into_the_port_model():
@@ -125,10 +134,50 @@ def test_initialize_model_dir_loads_in_jax(tmp_path):
 
 
 def test_create_model_names_the_roadmap_item_for_unported_pairs():
-    with pytest.raises(NotImplementedError, match='ROADMAP.md "The other two winning models'):
-        create_model('LinkNet', 'efficientnet-b7')
-    with pytest.raises(NotImplementedError, match='ROADMAP.md "The other two winning models'):
-        create_model('Unet', 'timm-regnetx_064')
+    for arch in ('FPN', 'PSPNet', 'PAN', 'MAnet', 'DeepLabV3', 'DeepLabV3Plus'):
+        with pytest.raises(NotImplementedError, match='ROADMAP.md "The rest of the model zoo"'):
+            create_model(arch, 'resnet18')
+        with pytest.raises(NotImplementedError, match='"The rest of the model zoo"'):
+            state_dict_to_variables({}, arch, 'resnet18')
+    with pytest.raises(NotImplementedError, match='ROADMAP.md "The rest of the model zoo"'):
+        create_encoder('efficientnet-b7', output_stride=16)
+    # what octseg does not know is a ValueError there and here
+    for arch, encoder in (('SegFormer', 'resnet18'), ('Unet', 'vgg16')):
+        with pytest.raises(ValueError):
+            jax_create_model(arch, encoder)
+        with pytest.raises(ValueError):
+            create_model(arch, encoder)
+
+
+@pytest.mark.parametrize('init', ['initialize_model_dir', 'init_model'])
+def test_initializers_draw_transposed_convs_from_the_seed(tmp_path, init):
+    """LinkNet's ConvTranspose2d weights come from the seed, N(0, 1/fan_in)
+    with fan_in = out_channels x 16 (flax's lecun fan-in of its (4, 4, out,
+    in) kernel), not from torch's default init and the global RNG."""
+    def draw(seed, tag):
+        if init == 'init_model':
+            return init_model(create_model('LinkNet', 'resnet18'), seed)
+        model_dir = torch_checkpoint.initialize_model_dir(
+            str(tmp_path / tag), ['Lumen'], 'LinkNet', 'resnet18', input_size=32, seed=seed)
+        model = create_model('LinkNet', 'resnet18')
+        torch_checkpoint.restore_weights_into(model, os.path.join(model_dir, 'weights.ckpt'),
+                                              'LinkNet', 'resnet18')
+        return model
+
+    def transposed(model):
+        return [m.weight.detach().clone() for m in model.modules()
+                if isinstance(m, torch.nn.ConvTranspose2d)]
+
+    torch.manual_seed(1)
+    a = transposed(draw(0, 'a'))
+    torch.manual_seed(2)
+    b = transposed(draw(0, 'b'))
+    c = transposed(draw(1, 'c'))
+    assert len(a) == 5
+    for wa, wb, wc in zip(a, b, c):
+        assert torch.equal(wa, wb) and not torch.equal(wa, wc)
+        fan_in = wa.shape[1] * 16
+        assert abs(float(wa.std()) * fan_in ** 0.5 - 1) < 0.1, (tuple(wa.shape), float(wa.std()))
 
 
 CONFIGS = sorted(glob.glob(os.path.join(octseg.PROJECT_DIR, 'configs', '*.yaml')))

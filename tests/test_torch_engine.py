@@ -24,7 +24,7 @@ from octseg.ops.normalize import normalize_imagenet
 from octseg.ops.resize import resize_bilinear, resize_nearest
 from octseg.parallel.sharding import make_mesh
 from octseg_torch import resolve_device
-from octseg_torch.infer.engine import MODELS_META, InferenceEngine
+from octseg_torch.infer.engine import CHUNK_MARGIN, MODELS_META, InferenceEngine, choose_chunk
 from octseg_torch.train.checkpoint import initialize_model_dir
 
 CLASSES = ['Lumen', 'Fibrous cap', 'Lipid core', 'Vasa vasorum']
@@ -199,3 +199,51 @@ def test_resolve_device():
             resolve_device()
         with pytest.raises(RuntimeError):
             InferenceEngine('.', CLASSES)
+
+
+def test_choose_chunk_takes_the_largest_that_fits():
+    """Fixed 1000 bytes plus 100 per frame, measured at 2 and 4 frames."""
+    probes = [(2, 1200), (4, 1400)]
+    assert choose_chunk(128, probes, 10 ** 6) == (128, 100.0, 13800.0)
+    assert choose_chunk(128, probes, 7400) == (64, 100.0, 7400.0)
+    assert choose_chunk(128, probes, 7399) == (32, 100.0, 4200.0)
+    assert choose_chunk(32, probes, 1100) == (1, 100.0, 1100.0)
+    # a block that is not a power of two (a short pullback): then powers of two
+    assert choose_chunk(5, probes, 1500) == (5, 100.0, 1500.0)
+    assert choose_chunk(5, probes, 1499) == (4, 100.0, 1400.0)
+    with pytest.raises(RuntimeError, match='one frame needs'):
+        choose_chunk(128, probes, 1099)
+
+
+def test_chunk_is_decided_once_per_shape_and_raises_when_one_frame_does_not_fit(
+        models_dir, monkeypatch):
+    calls = []
+
+    def probe(self, forward, frame_shape):
+        calls.append(tuple(frame_shape))
+        # 1 GiB per frame, 2 frames' worth free
+        return [(2, 2 << 30), (4, 4 << 30)], 0, int((2 << 30) / CHUNK_MARGIN) + 10 ** 7
+
+    monkeypatch.setattr(InferenceEngine, '_memory_probe', probe)
+    engine = InferenceEngine(models_dir, ['Lumen'], block_size=8, device='cpu')
+    frames = make_frames('rgb')
+    masks = engine.segment_pullback(frames, OUT)
+    engine.segment_pullback(frames, OUT)
+    assert calls == [(5, 70, 90, 3)]
+    plan = engine.chunk_plans[('LM', (5, 70, 90, 3), OUT)]
+    assert plan.chunk == 2 and plan.bytes_per_frame == 1 << 30
+    # beside the chunk: two blocks of frames and two of LM's packed masks
+    resident = 2 * (5 * 70 * 90 * 3 + 5 * OUT[0] * (OUT[1] // 8))
+    assert plan.predicted_peak_bytes == (2 << 30) + resident
+    assert plan.budget_bytes == int(CHUNK_MARGIN * (int((2 << 30) / CHUNK_MARGIN) + 10 ** 7
+                                                    - resident))
+    np.testing.assert_array_equal(
+        masks, InferenceEngine(models_dir, ['Lumen'], block_size=8, device='cpu')
+        .segment_pullback(frames, OUT))
+
+    monkeypatch.setattr(InferenceEngine, '_memory_probe',
+                        lambda self, forward, frame_shape: ([(2, 2 << 30), (4, 4 << 30)], 0,
+                                                            1 << 30))
+    with pytest.raises(RuntimeError, match='one frame needs'):
+        InferenceEngine(models_dir, ['Lumen'], block_size=8, device='cpu').segment_pullback(
+            frames, OUT)

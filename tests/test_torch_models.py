@@ -4,7 +4,12 @@ A flax model gets random variables from a numpy seed, they cross the weights
 bridge (octseg_torch.models.convert.variables_to_state_dict) into the port's
 model, and both run the same numpy input in fp32 on the CPU. Tolerance 2e-3,
 as tests/test_convert_torch.py holds converted checkpoints: the two
-frameworks sum convolutions in different orders.
+frameworks sum convolutions in different orders. The two winning 896 px
+models (LinkNet/efficientnet-b7, Unet/timm-regnetx_064) are in
+tests/test_torch_winners.py.
+
+``Conv2dSame`` is held to ``jax.lax.conv_general_dilated(padding='SAME')``
+within 1e-5 (float32 sums of at most 5x5x4 products of unit-scale values).
 """
 
 import jax
@@ -15,6 +20,7 @@ import torch
 
 from octseg.models import create_model as jax_create_model
 from octseg_torch.models import create_model
+from octseg_torch.models.common import Conv2dSame
 from octseg_torch.models.convert import variables_to_state_dict
 
 
@@ -59,6 +65,9 @@ def _forward_pair(arch, encoder, size, frames, classes=2, seed=0):
     ('Unet', 'resnet18', 64, 2),
     ('UnetPlusPlus', 'resnet18', 64, 2),
     ('UnetPlusPlus', 'resnet101', 32, 1),
+    ('LinkNet', 'resnet18', 64, 2),
+    ('LinkNet', 'efficientnet-b0', 64, 2),
+    ('Unet', 'timm-regnetx_002', 64, 2),
 ])
 def test_forward_parity_with_jax(arch, encoder, size, frames):
     want, got = _forward_pair(arch, encoder, size, frames)
@@ -66,3 +75,27 @@ def test_forward_parity_with_jax(arch, encoder, size, frames):
     assert np.isfinite(got).all()
     err = np.abs(got - want).max()
     assert err < 2e-3, f'{arch}/{encoder}: max abs err {err} (logit scale {np.abs(want).max()})'
+
+
+@pytest.mark.parametrize('size', [31, 32, 33])
+@pytest.mark.parametrize('stride', [1, 2])
+@pytest.mark.parametrize('kernel', [3, 5])
+@pytest.mark.parametrize('depthwise', [False, True])
+def test_same_padding_matches_xla(size, stride, kernel, depthwise):
+    """XLA's SAME padding is asymmetric for stride 2 on even sizes: a
+    symmetric padding=k//2 would shift every stride-2 window by a pixel."""
+    cin = 4
+    cout, groups = (cin, cin) if depthwise else (6, 1)
+    rng = np.random.default_rng(size * 100 + stride * 10 + kernel)
+    x = rng.normal(size=(2, size, size + 1, cin)).astype(np.float32)
+    w = rng.normal(size=(kernel, kernel, cin // groups, cout)).astype(np.float32)
+    want = np.asarray(jax.lax.conv_general_dilated(
+        jnp.asarray(x), jnp.asarray(w), (stride, stride), 'SAME',
+        dimension_numbers=('NHWC', 'HWIO', 'NHWC'), feature_group_count=groups,
+        precision=jax.lax.Precision.HIGHEST))
+    conv = Conv2dSame(cin, cout, kernel, stride, groups=groups)
+    with torch.no_grad():
+        conv.weight.copy_(torch.from_numpy(w.transpose(3, 2, 0, 1)))
+        got = conv(torch.from_numpy(x).permute(0, 3, 1, 2)).permute(0, 2, 3, 1).numpy()
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)

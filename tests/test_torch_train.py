@@ -349,3 +349,43 @@ def test_pretrained_encoder_loads_as_in_jax(tmp_path, layout):
     torch.save({'conv1.weight': torch.zeros(3, 3, 3, 3)}, bad)
     with pytest.raises(ValueError, match='does not match'):
         ckpt.load_pretrained_encoder(port, bad)
+
+
+@pytest.mark.parametrize('arch,encoder,tail', [
+    ('LinkNet', 'efficientnet-b0', {'_conv_head.weight': (1280, 320, 1, 1),
+                                    '_bn1.weight': (1280,), '_bn1.bias': (1280,),
+                                    '_bn1.running_mean': (1280,), '_bn1.running_var': (1280,),
+                                    '_fc.weight': (1000, 1280), '_fc.bias': (1000,)}),
+    ('Unet', 'timm-regnetx_002', {'head.fc.weight': (1000, 368), 'head.fc.bias': (1000,)}),
+])
+def test_pretrained_encoder_drops_classifier_tails_as_jax(tmp_path, arch, encoder, tail):
+    """An efficientnet-pytorch or timm encoder file carries its classifier
+    tail; both packages drop it and load the rest."""
+    from octseg.models.convert_torch import load_pretrained_encoder as jax_load
+
+    donor = create_model(arch, encoder, classes=1)
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for v in donor.state_dict().values():
+            if v.is_floating_point():
+                v.copy_(torch.randn(v.shape, generator=gen))
+    enc = dict(donor.encoder.state_dict())
+    sd = dict(enc, **{k: torch.randn(shape, generator=gen) for k, shape in tail.items()})
+    path = str(tmp_path / 'enc.pth')
+    torch.save(sd, path)
+
+    port = create_model(arch, encoder, classes=CLASSES)
+    ckpt.load_pretrained_encoder(port, path)
+    for k, v in enc.items():
+        assert torch.equal(port.encoder.state_dict()[k], v), k
+
+    fresh = {k: v.numpy() for k, v in create_model(arch, encoder,
+                                                    classes=CLASSES).state_dict().items()}
+    want = jax_load(state_dict_to_variables(fresh, arch, encoder), path, encoder)
+    got = state_dict_to_variables({k: v.numpy() for k, v in port.state_dict().items()},
+                                  arch, encoder)
+    for part in ('params', 'batch_stats'):
+        a, b = _flat(got[part]['encoder']), _flat(want[part]['encoder'])
+        assert set(a) == set(b)
+        for k in a:
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
