@@ -5,8 +5,8 @@ Usage: python3 chip_smoke.py   (from the repository root; needs one CUDA card)
 
 Phases, each raising on failure (exit code != 0):
   1. card name and power limit (nvidia-smi), torch and CUDA versions;
-  2. build the port's CUDA kernels with nvcc, one process per source, all
-     started together;
+  2. build the port's CUDA kernels with nvcc and the JPEG entropy decoder
+     (host C++) with g++, one process per source, all started together;
   3. K1, the fused overlay postprocess kernel, against its plain torch
      version on the card (ring bit-exact, fill within 1e-5) at the predict
      path's shape (128, 1000, 1000), at 32 and 64 masks of 1000x1000, and
@@ -28,6 +28,14 @@ Phases, each raising on failure (exit code != 0):
      ``octseg_torch.infer.predict.main`` with configs/predict.yaml's four
      classes and block size to 1000x1000 overlay PNGs; K1 must launch on
      frames x classes = 128 masks;
+  5a. JPEG: the C++ entropy decoder against its plain Python version,
+     bit-exact, on every file of tests/torch_fixtures/jpeg/ (a 16-frame
+     704x704 4:2:0 JPEG Baseline DICOM pullback and five small JPEGs), ms
+     per frame of each; the fixture's pullback through the predict path
+     (full ensemble, output 1000x1000); an image directory of 8 RGB PNGs at
+     1000x1000 and 8 of the fixture's frames as .jpg files through the
+     image-directory predict path; every overlay and mask PNG written at
+     1000x1000 and K1 launched; seconds per stage;
   5b. blocks of predict.yaml's ``block_size`` frames and of 32 through each
      model alone, and a full block through the ensemble: each model's
      probe-chosen chunk, predicted and measured device memory peaks,
@@ -35,6 +43,11 @@ Phases, each raising on failure (exit code != 0):
      at predicted / CHUNK_MARGIN (must fit) and at predicted / 0.8
      (recorded); then K1 on the ensemble block's masks, whose buffers must
      fit in what the forwards freed;
+  5c. bf16: each model's 128-frame block with bf16=true under the cap of
+     predicted / CHUNK_MARGIN (must fit); the 32-frame pullback through the
+     ensemble with softened heads in bf16 against fp32, per class the share
+     of differing pixels where the fp32 probability is at least BF16_BAND
+     from 0.5 within BF16_MASK_SHARE; the predict path with bf16=true;
   6. ensemble routing with the three families at 64 px (UnetPlusPlus/
      resnet101, LinkNet/efficientnet-b7, Unet/timm-regnetx_064) over all
      four classes, GPU against CPU;
@@ -46,6 +59,11 @@ Phases, each raising on failure (exit code != 0):
      512, batch 4, four classes, Adam, augmentation on); K2 must launch once
      per training step; then one step at those shapes timed alone and
      profiled (device busy time by kernel, idle share);
+  8b. the training path again with bf16=true; one fp32 step of Unet/
+     resnet50 at 512 with remat on and off (gradients within
+     REMAT_GRAD_GAP, BatchNorm statistics within BN_STATS_ATOL); the memory
+     peak of one bf16 step of LinkNet/efficientnet-b7 at 896, batch 4, with
+     and without remat;
   9. Unet/resnet18 at 64 px, GPU (TF32 off) against CPU, from the same
      weights: the first step's gradients, three SGD steps and three Adam
      steps, with controls that must fail;
@@ -82,6 +100,18 @@ LOGITS_ATOL = 1e-3            # GPU against CPU, every ensemble model (PERF.md)
 K2_OPS_PER_PIXEL = 60         # coordinates 15, per channel 7 blend or 1 select
 TRAIN_FRAME_PX = 1000         # the dataset's frames (configs/convert_sly_to_int.yaml)
 TRAIN_SPLITS = (16, 4, 2)     # train, test, vis samples of the synthetic fold
+JPEG_FIXTURE = os.path.join(REPO, 'tests', 'torch_fixtures', 'jpeg')
+IMAGE_DIR_PNGS = 8            # RGB PNGs at MAIN_OUT beside 8 of the fixture's JPEG frames
+# bf16 against fp32 predict (bounds stated in PERF.md before the first run):
+# per class, the share of pixels whose masks differ where the fp32
+# probability is at least BF16_BAND from 0.5 must stay within BF16_MASK_SHARE
+BF16_BAND = 0.05
+BF16_MASK_SHARE = 1e-3
+# remat against plain, one fp32 step of Unet/resnet50 at 512 (bounds stated
+# in PERF.md before the first run): the worst parameter's relative L2
+# gradient gap; BatchNorm running statistics within BN_STATS_ATOL
+REMAT_GRAD_GAP = 1e-4
+BN_STATS_ATOL = 1e-6
 
 
 def log(msg: str) -> None:
@@ -463,7 +493,7 @@ def main_path(tmp: str):
             'peak_allocated_bytes': peak, 'dcm': dcm, 'models': models}
 
 
-def block_memory(main):
+def block_memory(main, bf16: bool = False):
     """Blocks of the main path's pullback (repeated) through each ensemble
     model alone, at predict.yaml's ``block_size`` frames and at the main
     path's 32, and one full block through the ensemble: each model's chunk
@@ -475,7 +505,10 @@ def block_memory(main):
     The engine's margin: each model's block runs again with the allocator
     allowed to reserve only its predicted peak / CHUNK_MARGIN, which must
     fit, and only its predicted peak / 0.8, which is recorded (out of
-    memory or its peak)."""
+    memory or its peak).
+
+    With ``bf16``: each model's full block alone, under the cap of
+    predicted / CHUNK_MARGIN only (it must fit)."""
     import gc
 
     import numpy as np
@@ -497,7 +530,7 @@ def block_memory(main):
     def run(run_classes, n):
         engine = InferenceEngine(main['models'], run_classes, block_size=block,
                                  output_resize=str(cfg.get('output_resize', 'prob_bilinear')),
-                                 device='cuda')
+                                 device='cuda', bf16=bf16)
         gc.collect()
         torch.cuda.empty_cache()
         blocks = [m.shape[0] for _s, m in engine.iter_pullback(frames[:n], out)]   # probes
@@ -532,21 +565,23 @@ def block_memory(main):
         finally:
             torch.cuda.set_per_process_memory_fraction(1.0)
 
-    records = {'block_size': block, 'device_total_bytes': total, 'models': {}}
+    records = {'block_size': block, 'device_total_bytes': total, 'bf16': bf16, 'models': {}}
+    ratios = (CHUNK_MARGIN,) if bf16 else (CHUNK_MARGIN, 0.8)
     for name, model_classes, arch, encoder, size in ENSEMBLE:
         records['models'][name] = {'model': f'{arch}/{encoder}', 'input_size': size}
-        for n in (block, MAIN_FRAMES):
+        for n in (block,) if bf16 else (block, MAIN_FRAMES):
             rec, _, engine = run(model_classes, n)
             plan = rec['plans'][name]
             if plan['bytes_per_frame'] is None:
                 raise AssertionError(f'{name}: the engine chose its chunk without a probe')
-            for ratio in (CHUNK_MARGIN, 0.8):
+            for ratio in ratios:
                 rec[f'peak_allocated_bytes_capped_at_{ratio}'] = capped(
                     engine, n, plan['predicted_peak_bytes'], ratio, ratio == CHUNK_MARGIN)
             del engine
             records['models'][name][str(n)] = rec
-            caps = [rec[f'peak_allocated_bytes_capped_at_{r}'] for r in (CHUNK_MARGIN, 0.8)]
-            log(f'one {n}-frame block, {name} {arch}/{encoder} at {size} fp32: chunk '
+            caps = [rec.get(f'peak_allocated_bytes_capped_at_{r}') for r in (CHUNK_MARGIN, 0.8)]
+            log(f'one {n}-frame block, {name} {arch}/{encoder} at {size} '
+                f'{"bf16" if bf16 else "fp32"}: chunk '
                 f'{plan["chunk"]}, {plan["bytes_per_frame"] / 2**20:.1f} MiB per frame fitted; '
                 f'peak allocated predicted {plan["predicted_peak_bytes"] / 2**30:.2f} GiB, '
                 f'measured {rec["peak_allocated_bytes"] / 2**30:.2f} GiB (reserved '
@@ -554,8 +589,11 @@ def block_memory(main):
                 f'budget {plan["budget_bytes"] / 2**30:.2f} GiB; {rec["seconds"]:.2f} s '
                 f'({n / rec["seconds"]:.1f} frames/s, forward and bit expansion); peak allocated '
                 f'capped at predicted / {CHUNK_MARGIN}: {caps[0] / 2**30:.2f} GiB, at predicted '
-                f'/ 0.8: ' + ('out of memory' if caps[1] is None else f'{caps[1] / 2**30:.2f} GiB'))
+                f'/ 0.8: ' + ('not run' if bf16 else 'out of memory' if caps[1] is None
+                              else f'{caps[1] / 2**30:.2f} GiB'))
             gc.collect()
+    if bf16:
+        return records
     rec, masks, _engine = run(classes, block)
     records['ensemble'] = rec
     # the render's postprocess on this block: (frames x classes, H, W)
@@ -584,25 +622,30 @@ def block_memory(main):
     return records
 
 
-def probabilities(engine, name, frames, out_size):
-    """The engine's pre-threshold probabilities for one model (CPU)."""
+def probabilities(engine, name, frames, out_size, chunk: int = 8):
+    """The engine's pre-threshold probabilities for one model on its device
+    (the pullback variant's preprocessing and output resize), (N, C, H, W)
+    float32 on the host."""
     import torch
 
+    from octseg_torch.infer.engine import fp32_exact
     from octseg_torch.ops.normalize import normalize_imagenet
     from octseg_torch.ops.resize import resize_bilinear_nchw, resize_nearest_nchw
 
     model, cfg = engine._bundle(name)
     s = cfg['input_size']
-    with torch.inference_mode():
-        x = torch.from_numpy(frames).flip(-1).float().permute(0, 3, 1, 2)
-        x = resize_bilinear_nchw(x, (s, s))
-        x = x.expand(-1, 3, -1, -1) if x.shape[1] == 1 else x
-        if cfg.get('normalize', False):
-            x = normalize_imagenet(x, channel_dim=1)
-        probs = torch.sigmoid(model(x.contiguous()))
-        resize = (resize_bilinear_nchw if engine.output_resize == 'prob_bilinear'
-                  else resize_nearest_nchw)
-        return resize(probs, out_size).numpy()
+    resize = (resize_bilinear_nchw if engine.output_resize == 'prob_bilinear'
+              else resize_nearest_nchw)
+    outs = []
+    with torch.inference_mode(), fp32_exact():
+        for i in range(0, frames.shape[0], chunk):
+            x = torch.from_numpy(frames[i:i + chunk]).to(engine.device)
+            x = resize_bilinear_nchw(x.flip(-1).float().permute(0, 3, 1, 2), (s, s))
+            x = x.expand(-1, 3, -1, -1) if x.shape[1] == 1 else x
+            if cfg.get('normalize', False):
+                x = normalize_imagenet(x, channel_dim=1)
+            outs.append(resize(torch.sigmoid(model(x.contiguous())), out_size).cpu())
+    return torch.cat(outs).numpy()
 
 
 def soften_heads(models: str) -> None:
@@ -696,10 +739,11 @@ def logits_gpu_vs_cpu(main):
     return record
 
 
-def train_path(tmp: str):
+def train_path(tmp: str, bf16: bool = False):
     """The training path at full width: configs/train.yaml's Unet/resnet50
     at 512, batch 4, four classes, Adam, augmentation on, two epochs over a
-    synthetic fold of 1000 px frames."""
+    synthetic fold of 1000 px frames (made by the first call); with
+    ``bf16``, ``bf16=true``."""
     import csv
     import math
 
@@ -715,16 +759,18 @@ def train_path(tmp: str):
 
     fold = os.path.join(tmp, 'fold')
     n_train, n_test, n_vis = TRAIN_SPLITS
-    t = time.perf_counter()
-    make_synth_fold(fold, n_train, n_test, size=TRAIN_FRAME_PX, seed=11, n_vis=n_vis)
-    log(f'synthetic fold ({n_train}/{n_test}/{n_vis} at {TRAIN_FRAME_PX} px) written in '
-        f'{time.perf_counter() - t:.1f} s')
+    if not os.path.isdir(fold):
+        t = time.perf_counter()
+        make_synth_fold(fold, n_train, n_test, size=TRAIN_FRAME_PX, seed=11, n_vis=n_vis)
+        log(f'synthetic fold ({n_train}/{n_test}/{n_vis} at {TRAIN_FRAME_PX} px) written in '
+            f'{time.perf_counter() - t:.1f} s')
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     k1.launches = k2.launches = 0
     t = time.perf_counter()
-    summary = train(overrides=[f'data_dir={fold}', f'save_dir={os.path.join(tmp, "train")}',
-                               'epochs=2'])
+    save_dir = os.path.join(tmp, 'train_bf16' if bf16 else 'train')
+    summary = train(overrides=[f'data_dir={fold}', f'save_dir={save_dir}', 'epochs=2']
+                    + (['bf16=true'] if bf16 else []))
     wall = time.perf_counter() - t
     launches = {'k1': k1.launches, 'k2': k2.launches}
     peak = torch.cuda.max_memory_allocated()
@@ -755,17 +801,18 @@ def train_path(tmp: str):
         raise AssertionError(f'{steps} train steps, {launches["k2"]} K2 launches')
     breakdown = step_breakdown(torch, manifest['architecture'], manifest['encoder'],
                                len(manifest['classes']), int(manifest['input_size']),
-                               int(manifest['batch_size']))
+                               int(manifest['batch_size']), bf16)
     secs = summary['seconds']
     loop = secs['data_wait'] + secs['train']
-    record = {'model': f'{manifest["architecture"]}/{manifest["encoder"]}',
+    record = {'model': f'{manifest["architecture"]}/{manifest["encoder"]}', 'bf16': bf16,
               'input_size': manifest['input_size'], 'batch_size': manifest['batch_size'],
               'train_steps': steps, 'train_samples': summary['train_samples'],
               'samples_per_s': summary['train_samples'] / loop, 'seconds': secs,
               'data_wait_share': secs['data_wait'] / loop, 'wall_s': wall,
               'peak_allocated_bytes': peak, 'launches': launches,
               'best_val_loss': summary['best_val_loss'], 'step': breakdown}
-    log(f'training path: {record["model"]} at {record["input_size"]}, batch '
+    log(f'training path ({"bf16" if bf16 else "fp32"}): {record["model"]} at '
+        f'{record["input_size"]}, batch '
         f'{record["batch_size"]}: {steps} steps, {record["samples_per_s"]:.2f} samples/s in '
         f'the train loop, data-wait share {record["data_wait_share"]:.3f}; seconds per stage '
         f'{json.dumps({k: round(v, 3) for k, v in secs.items()})}; {wall:.1f} s in main(); '
@@ -774,7 +821,8 @@ def train_path(tmp: str):
     return record
 
 
-def step_breakdown(torch, arch: str, encoder: str, classes: int, size: int, batch: int):
+def step_breakdown(torch, arch: str, encoder: str, classes: int, size: int, batch: int,
+                   bf16: bool = False):
     """One training step at the training path's shapes without the loader:
     its time (CUDA events, median of 10), the augmentation's alone, and a
     profiler trace of 3 steps: device busy time by kernel and the idle share
@@ -786,7 +834,8 @@ def step_breakdown(torch, arch: str, encoder: str, classes: int, size: int, batc
     from octseg_torch.train.state import TrainState, make_optimizer
     from octseg_torch.train.train import init_model, make_train_step
 
-    model = init_model(create_model(arch, encoder, classes=classes), 0).cuda()
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    model = init_model(create_model(arch, encoder, classes=classes, dtype=dtype), 0).cuda()
     state = TrainState.create(model, make_optimizer('Adam', 1e-5))
     step = make_train_step(use_augmentation=True)
     gen = torch.Generator(device='cuda').manual_seed(0)
@@ -818,7 +867,8 @@ def step_breakdown(torch, arch: str, encoder: str, classes: int, size: int, batc
               'device_busy_ms': busy_ms if busy_ms > 0 else None,
               'device_idle_share': 1 - busy_ms / wall_ms if busy_ms > 0 else None,
               'top_kernels': top}
-    log(f'one training step ({arch}/{encoder} at {size}, batch {batch}, augmentation on): '
+    log(f'one training step ({arch}/{encoder} at {size}, batch {batch}, '
+        f'{"bf16" if bf16 else "fp32"}, augmentation on): '
         f'{step_ms:.2f} ms, augmentation alone {augment_ms:.3f} ms; profiled 3 steps: wall '
         f'{wall_ms:.1f} ms, device busy {busy_ms:.1f} ms'
         + (f', idle share {record["device_idle_share"]:.3f}' if busy_ms > 0 else
@@ -940,6 +990,270 @@ def train_step_gpu_vs_cpu():
     return out
 
 
+def remat_step():
+    """One training step of configs/train.yaml's Unet/resnet50 at 512, batch
+    4, four classes, augmentation on, with remat on and off, from the same
+    weights, batch and generator seed: the worst parameter's relative L2
+    gradient gap within REMAT_GRAD_GAP, the BatchNorm running statistics
+    within BN_STATS_ATOL, the loss equal to 1e-6 relative; the memory peak
+    of each."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from octseg_torch.infer.engine import fp32_exact
+    from octseg_torch.models import create_model
+    from octseg_torch.models.remat import set_block_remat
+    from octseg_torch.ops.augment import augment_batch
+    from octseg_torch.train.train import _loss_and_logits, init_model
+
+    base = init_model(create_model('Unet', 'resnet50', classes=4), seed=0)
+    gen = torch.Generator(device='cuda').manual_seed(1)
+    imgs = torch.rand((4, 512, 512, 3), device='cuda', generator=gen) * 255.0
+    masks = (torch.rand((4, 512, 512, 4), device='cuda', generator=gen) > 0.6).float()
+    out = {}
+    for remat in (False, True):
+        model = set_block_remat(copy.deepcopy(base), remat).cuda().train()
+        gen.manual_seed(7)
+        x, y = augment_batch(imgs, masks, gen)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        with fp32_exact():
+            loss, _, _ = _loss_and_logits(model, x, y)
+            loss.backward()
+        torch.cuda.synchronize()
+        out[remat] = (float(loss.detach()),
+                      {k: p.grad.double().cpu().numpy() for k, p in model.named_parameters()},
+                      {k: b.double().cpu().numpy() for k, b in model.named_buffers()},
+                      torch.cuda.max_memory_allocated() - before)
+        del model, loss
+    (loss, grads, stats, peak), (rloss, rgrads, rstats, rpeak) = out[False], out[True]
+    gaps = {k: float(np.linalg.norm(rgrads[k] - grads[k]) / max(np.linalg.norm(grads[k]),
+                                                                1e-30)) for k in grads}
+    worst = max(gaps, key=gaps.get)
+    stats_gap = max(float(np.abs(rstats[k] - stats[k]).max()) for k in stats)
+    record = {'loss': loss, 'loss_remat': rloss, 'grad_worst_rel_gap': gaps[worst],
+              'grad_worst_param': worst, 'bn_stats_max_abs_gap': stats_gap,
+              'step_peak_bytes': peak, 'step_peak_bytes_remat': rpeak}
+    log(f'remat against plain, one fp32 step of Unet/resnet50 at 512, batch 4: loss {loss:.6f} '
+        f'vs {rloss:.6f}; worst relative gradient gap {gaps[worst]:.3g} ({worst}), bound '
+        f'{REMAT_GRAD_GAP}; BatchNorm statistics max |delta| {stats_gap:.3g}, bound '
+        f'{BN_STATS_ATOL}; step memory peak above the model {peak / 2**30:.2f} GiB plain, '
+        f'{rpeak / 2**30:.2f} GiB with remat')
+    if (gaps[worst] > REMAT_GRAD_GAP or stats_gap > BN_STATS_ATOL
+            or abs(loss - rloss) > 1e-6 * abs(loss)):
+        raise AssertionError(f'remat and plain steps disagree: {record}')
+    return record
+
+
+def b7_step_memory():
+    """The device memory peak of one bf16 training step of LinkNet/
+    efficientnet-b7 at 896, batch 4, two classes (FC_LC's), augmentation on,
+    Adam, with and without remat; the losses must be finite."""
+    import math
+
+    import torch
+
+    from octseg_torch.models import create_model
+    from octseg_torch.train.state import TrainState, make_optimizer
+    from octseg_torch.train.train import init_model, make_train_step
+
+    gen = torch.Generator(device='cuda').manual_seed(2)
+    imgs = torch.rand((4, 896, 896, 3), device='cuda', generator=gen) * 255.0
+    masks = (torch.rand((4, 896, 896, 2), device='cuda', generator=gen) > 0.6).float()
+    record = {}
+    for remat in (False, True):
+        key = 'remat' if remat else 'plain'
+        torch.cuda.empty_cache()
+        model = init_model(create_model('LinkNet', 'efficientnet-b7', classes=2,
+                                        dtype=torch.bfloat16, remat=remat), 0).cuda()
+        state = TrainState.create(model, make_optimizer('Adam', 1e-5))
+        step = make_train_step(use_augmentation=True)
+        try:
+            step(state, imgs, masks, gen)     # optimizer state allocated
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            loss = float(step(state, imgs, masks, gen)['loss'])
+            torch.cuda.synchronize()
+            record[key] = {'peak_allocated_bytes': torch.cuda.max_memory_allocated(),
+                           'step_s': time.perf_counter() - t, 'loss': loss}
+        except torch.OutOfMemoryError:
+            if remat:
+                raise
+            record[key] = {'peak_allocated_bytes': None, 'out_of_memory': True}
+            loss = 0.0
+        del state, model, step
+        torch.cuda.empty_cache()
+        if not math.isfinite(loss):
+            raise AssertionError(f'bf16 LinkNet/efficientnet-b7 step ({key}): loss {loss}')
+
+    def peak(key):
+        rec = record[key]
+        if rec['peak_allocated_bytes'] is None:
+            return 'out of memory'
+        return f'{rec["peak_allocated_bytes"] / 2**30:.2f} GiB ({rec["step_s"]:.3f} s)'
+
+    log('one bf16 training step of LinkNet/efficientnet-b7 at 896, batch 4: device memory peak '
+        f'{peak("plain")} plain, {peak("remat")} with remat')
+    return record
+
+
+def jpeg_decode():
+    """The C++ entropy decoder against its plain Python version on every
+    fixture file (the pullback's 16 frames and the small JPEGs), bit-exact;
+    ms per frame of each, from the whole decode (parse, entropy, IDCT,
+    upsampling, colour), the pullback's frames only."""
+    import numpy as np
+
+    from octseg_torch.data import dicom
+    from octseg_torch.data.jpeg import decode_jpeg
+
+    frames = list(dicom.dcmread(os.path.join(JPEG_FIXTURE, 'pullback.dcm')).PixelData)
+    small = {}
+    for name in sorted(os.listdir(JPEG_FIXTURE)):
+        if name.endswith('.jpg'):
+            with open(os.path.join(JPEG_FIXTURE, name), 'rb') as f:
+                small[name] = f.read()
+    record = {'frames': len(frames), 'small_files': sorted(small)}
+    for label, native in (('native', True), ('python', False)):
+        t = time.perf_counter()
+        record[label] = [decode_jpeg(f, native=native) for f in frames]
+        record[f'{label}_ms_per_frame'] = (time.perf_counter() - t) * 1e3 / len(frames)
+    for k, (a, b) in enumerate(zip(record.pop('native'), record.pop('python'))):
+        if a.shape != (704, 704, 3) or not np.array_equal(a, b):
+            raise AssertionError(f'pullback frame {k}: C++ and Python entropy decoders differ')
+    for name, data in small.items():
+        if not np.array_equal(decode_jpeg(data), decode_jpeg(data, native=False)):
+            raise AssertionError(f'{name}: C++ and Python entropy decoders differ')
+    log(f'JPEG decode: {len(frames)} 704x704 4:2:0 frames and {len(small)} small files '
+        f'bit-exact C++ against Python; {record["native_ms_per_frame"]:.2f} ms per frame with '
+        f'the C++ entropy decoder, {record["python_ms_per_frame"]:.2f} ms with the Python one')
+    return record
+
+
+def run_predict(overrides, out: str, n_images: int, label: str):
+    """``predict.main`` with ``overrides`` (a user's command line) from
+    launch counts of 0: every image's two PNGs at MAIN_OUT must be written
+    and K1 must launch. Returns its record."""
+    import torch
+
+    from octseg_torch.infer.predict import main as predict
+    from octseg_torch.ops.kernels import postprocess as k1
+    from octseg_torch.ops.kernels import warp as k2
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    k1.launches = k2.launches = 0
+    result = predict(overrides=list(overrides) + [f'save_dir={out}',
+                                                  f'output_size=[{MAIN_OUT},{MAIN_OUT}]',
+                                                  'device=cuda'])
+    launches, peak = k1.launches, torch.cuda.max_memory_allocated()
+    pngs = sorted(f for f in os.listdir(out) if f.endswith('.png'))
+    if result['frames'] != n_images or len(pngs) != 2 * n_images:
+        raise AssertionError(f'{label}: {result["frames"]} images, {len(pngs)} PNGs')
+    for f in pngs:
+        if png_size(os.path.join(out, f)) != (MAIN_OUT, MAIN_OUT):
+            raise AssertionError(f'{label}: {f} is not {MAIN_OUT}x{MAIN_OUT}')
+    if launches < 1:
+        raise AssertionError(f'{label}: K1 never launched')
+    secs = result['seconds']
+    record = {'frames': result['frames'], 'seconds': secs, 'chunks': result['chunks'],
+              'k1_launches': launches, 'k2_launches': k2.launches,
+              'frames_per_s': result['frames'] / secs['total'], 'peak_allocated_bytes': peak}
+    log(f'{label}: {result["frames"]} images, {launches} K1 launch(es), '
+        f'{record["frames_per_s"]:.2f} frames/s end to end; seconds per stage '
+        f'{json.dumps({k: round(v, 3) for k, v in secs.items()})}; chunks {result["chunks"]}; '
+        f'device memory peak {peak / 2**30:.2f} GiB')
+    return record
+
+
+def jpeg_pullback(tmp: str, main):
+    """The fixture's JPEG Baseline pullback (16 704x704 4:2:0 colour frames)
+    through the full ensemble, configs/predict.yaml's classes and block."""
+    out = os.path.join(tmp, 'predict_jpeg')
+    return run_predict([f'data_dir={os.path.join(JPEG_FIXTURE, "pullback.dcm")}',
+                        f'models_dir={main["models"]}'], out, 16, 'JPEG pullback predict')
+
+
+def image_directory(tmp: str, main):
+    """The image-directory path at full width: IMAGE_DIR_PNGS RGB PNGs at
+    MAIN_OUT written by the port's write_png, and 8 of the fixture's JPEG
+    frames as .jpg files, through the full ensemble."""
+    import numpy as np
+
+    from octseg_torch.data import dicom
+    from octseg_torch.data.image import write_png
+
+    images = os.path.join(tmp, 'images')
+    os.makedirs(images)
+    frames = synthetic_pullback(IMAGE_DIR_PNGS, MAIN_OUT, 7)
+    for k, frame in enumerate(frames):
+        write_png(os.path.join(images, f'png_{k:02d}.png'),
+                  np.stack([frame, (0.8 * frame).astype(np.uint8), frame // 2], -1))
+    fragments = dicom.dcmread(os.path.join(JPEG_FIXTURE, 'pullback.dcm')).PixelData
+    for k, frag in enumerate(fragments[:8]):
+        with open(os.path.join(images, f'jpg_{k:02d}.jpg'), 'wb') as f:
+            f.write(frag)
+    return run_predict([f'data_dir={images}', f'models_dir={main["models"]}'],
+                       os.path.join(tmp, 'predict_images'), IMAGE_DIR_PNGS + 8,
+                       'image-directory predict')
+
+
+def bf16_predict(tmp: str, main):
+    """The 32-frame main-path pullback with ``bf16=true`` against fp32 on
+    the ensemble with softened heads: per class, the share of pixels whose
+    masks differ away from p = 0.5 (the fp32 probability at least BF16_BAND
+    from it) within BF16_MASK_SHARE; then the predict path itself with
+    bf16=true for its frames/s, chunks and memory peak beside fp32's."""
+    import numpy as np
+
+    from octseg_torch.core.config import load_config
+    from octseg_torch.infer.engine import InferenceEngine
+    from octseg_torch.infer.predict import load_pullback_frames
+
+    models = make_ensemble(os.path.join(tmp, 'soft'))
+    soften_heads(models)
+    cfg = load_config('predict')
+    classes = list(cfg.classes)
+    frames = load_pullback_frames(main['dcm'])
+    out = (MAIN_OUT, MAIN_OUT)
+    masks, engines = {}, {}
+    for bf16 in (False, True):
+        engines[bf16] = InferenceEngine(models, classes, block_size=int(cfg.block_size),
+                                        device='cuda', bf16=bf16)
+        masks[bf16] = engines[bf16].segment_pullback(frames, out)
+    record = {'band': BF16_BAND, 'bound': BF16_MASK_SHARE, 'classes': {}}
+    for name, routes in engines[False]._ensemble_plan().items():
+        p32 = probabilities(engines[False], name, frames, out)
+        p16 = probabilities(engines[True], name, frames, out)
+        for cls, ch, mask_ch in routes:
+            differ = masks[False][..., mask_ch] != masks[True][..., mask_ch]
+            away = np.abs(p32[:, ch] - 0.5) >= BF16_BAND
+            rec = {'differing_share': float(differ.mean()),
+                   'differing_share_away': float((differ & away).mean()),
+                   'near_share': float((~away).mean()),
+                   'positive_share_fp32': float(masks[False][..., mask_ch].mean()),
+                   'max_abs_prob_delta': float(np.abs(p16[:, ch] - p32[:, ch]).max())}
+            record['classes'][cls] = rec
+            log(f'bf16 vs fp32, {cls} ({name}): {rec["differing_share"]:.3e} of pixels differ, '
+                f'{rec["differing_share_away"]:.3e} with the fp32 probability at least '
+                f'{BF16_BAND} from 0.5 (bound {BF16_MASK_SHARE}); {rec["near_share"]:.3e} within '
+                f'it; max |p_bf16 - p_fp32| {rec["max_abs_prob_delta"]:.3g}; positive share '
+                f'{rec["positive_share_fp32"]:.4f}')
+    del engines
+    bad = {c: r['differing_share_away'] for c, r in record['classes'].items()
+           if r['differing_share_away'] > BF16_MASK_SHARE}
+    if bad:
+        raise AssertionError(f'bf16 masks differ from fp32 beyond the bound: {bad}')
+    record['predict'] = run_predict([f'data_dir={main["dcm"]}', f'models_dir={main["models"]}',
+                                     'bf16=true'], os.path.join(tmp, 'predict_bf16'),
+                                    MAIN_FRAMES, 'bf16 predict path')
+    return record
+
+
 def main() -> int:
     import torch
 
@@ -954,9 +1268,13 @@ def main() -> int:
     from octseg_torch.ops.kernels import _build
 
     def build(names):
-        # one nvcc per source, all started together
-        with ThreadPoolExecutor(len(names)) as pool:
-            list(pool.map(_build.load, names))
+        # one compiler per source, all started together: nvcc for the CUDA
+        # kernels, g++ for the JPEG entropy decoder
+        with ThreadPoolExecutor(len(names) + 1) as pool:
+            futures = [pool.submit(_build.load, name) for name in names]
+            futures.append(pool.submit(_build.load_host, 'jpeg_entropy'))
+            for fut in futures:
+                fut.result()
 
     phases.run('build', build, ['postprocess', 'warp'])
     k1 = phases.run('K1 vs plain', check_k1, torch)
@@ -964,10 +1282,18 @@ def main() -> int:
     tmp = tempfile.mkdtemp(prefix='octseg_torch_smoke_')
     try:
         main = phases.run('predict path', main_path, tmp)
+        jpeg = phases.run('JPEG decode', jpeg_decode)
+        jpeg_predict = phases.run('JPEG pullback predict', jpeg_pullback, tmp, main)
+        images = phases.run('image-directory predict', image_directory, tmp, main)
         memory = phases.run('block memory', block_memory, main)
+        memory_bf16 = phases.run('block memory bf16', block_memory, main, True)
+        bf16 = phases.run('bf16 predict', bf16_predict, tmp, main)
         share = phases.run('routing GPU vs CPU', routing, tmp)
         logits = phases.run('logits GPU vs CPU', logits_gpu_vs_cpu, main)
         train = phases.run('training path', train_path, tmp)
+        train_bf16 = phases.run('training path bf16', train_path, tmp, True)
+        remat = phases.run('remat step', remat_step)
+        b7_memory = phases.run('bf16 b7 step memory', b7_step_memory)
         step_gaps = phases.run('train step GPU vs CPU', train_step_gpu_vs_cpu)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -1008,10 +1334,18 @@ def main() -> int:
                       'predict_path': {k: main[k] for k in (
                           'frames', 'seconds', 'chunks', 'k1_shapes', 'positive_share',
                           'peak_allocated_bytes')},
+                      'jpeg_decode': jpeg,
+                      'jpeg_pullback_predict': jpeg_predict,
+                      'image_directory_predict': images,
                       'block_memory': memory,
+                      'block_memory_bf16': memory_bf16,
+                      'bf16_predict': bf16,
                       'routing_near_half_share': share,
                       'logits_gpu_vs_cpu': logits,
                       'training_path': train,
+                      'training_path_bf16': train_bf16,
+                      'remat_step': remat,
+                      'bf16_b7_step_memory': b7_memory,
                       'train_step_gpu_vs_cpu': step_gaps}), flush=True)
     log(f'total {time.perf_counter() - phases.t0:.1f} s')
     print(json.dumps({'ok': True, 'device': {

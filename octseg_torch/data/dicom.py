@@ -4,11 +4,11 @@ A copy of octseg/data/dicom.py (numpy and struct only; the port imports
 nothing of octseg). It implements the subset OCT pullbacks need:
 
 - read: explicit & implicit VR little endian; native (uncompressed) pixel
-  data for uint8/uint16. Encapsulated (JPEG-family) frames are parsed but
-  not decoded: octseg decodes them with cv2, which the port does not use
-  (ROADMAP.md, "The image-directory predict path", which adds a JPEG
-  decoder); the tag dictionary covers the fields the
-  metadata extractor exports.
+  data for uint8/uint16; encapsulated JPEG Baseline (1.2.840.10008.1.2.4.50)
+  and JPEG Extended (.51) frames, decoded as octseg decodes them with
+  ``cv2.imdecode(..., IMREAD_UNCHANGED)`` by the port's own decoder
+  (data/jpeg.py); other encapsulated transfer syntaxes raise. The tag
+  dictionary covers the fields the metadata extractor exports.
 - write: explicit VR little endian, multi-frame 8-bit RGB or grayscale,
   uncompressed — used by tests and demo-data generation.
 """
@@ -17,13 +17,17 @@ from __future__ import annotations
 
 import os
 import struct
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from octseg_torch.data.jpeg import ROADMAP_ITEM, decode_jpeg
+
 EXPLICIT_LE = '1.2.840.10008.1.2.1'
 IMPLICIT_LE = '1.2.840.10008.1.2'
 JPEG_BASELINE = '1.2.840.10008.1.2.4.50'
+JPEG_EXTENDED = '1.2.840.10008.1.2.4.51'
 
 # Keyword -> (group, element, VR)
 TAGS = {
@@ -128,10 +132,10 @@ class Dataset:
                 arr = arr[0]
             return arr  # non-contiguous views stay zero-copy
         if isinstance(raw, list):  # encapsulated fragments
-            raise NotImplementedError(
-                f'encapsulated pixel data (transfer syntax {ts}) needs a JPEG '
-                f'decoder; octseg_torch decodes native pixel data only '
-                f'(ROADMAP.md, "The image-directory predict path")')
+            arr = self._decode_fragments(raw, frames, ts)
+            if frames == 1 and self.get('NumberOfFrames') is None:
+                arr = arr[0]
+            return arr
         dtype = np.uint8 if bits == 8 else np.uint16
         arr = np.frombuffer(raw, dtype=dtype)
         expected = frames * rows * cols * spp
@@ -147,6 +151,25 @@ class Dataset:
         if frames == 1 and arr.shape[0] == 1 and self.get('NumberOfFrames') is None:
             arr = arr[0]
         return np.ascontiguousarray(arr)
+
+    @staticmethod
+    def _decode_fragments(raw: List[bytes], frames: int, ts: str) -> np.ndarray:
+        """JPEG frames -> (frames, H, W, 3) RGB or (frames, H, W) uint8, as
+        octseg's cv2.imdecode path: one frame split into several fragments
+        is joined; any other mismatch of fragments and frames raises."""
+        if ts not in (JPEG_BASELINE, JPEG_EXTENDED):
+            raise NotImplementedError(
+                f'encapsulated pixel data in transfer syntax {ts} is not decoded: '
+                f'octseg_torch decodes JPEG Baseline and Extended frames ({ROADMAP_ITEM})')
+        if len(raw) != frames:
+            if frames != 1:
+                raise DicomError(f'{len(raw)} pixel-data fragments for {frames} frames '
+                                 f'and no usable offset table')
+            raw = [b''.join(raw)]
+        # the entropy decoder runs outside the interpreter lock (ctypes), and
+        # so does most of numpy's share
+        with ThreadPoolExecutor(min(8, len(raw), os.cpu_count() or 1)) as pool:
+            return np.stack(list(pool.map(decode_jpeg, raw)))
 
 
 def _skip_undefined_sequence(buf, pos: int, explicit: bool) -> int:

@@ -1,15 +1,21 @@
 """Host image work without PIL or cv2, bit-exact with what octseg calls.
 
-- ``pil_resize_bicubic``: Pillow's default ``Image.resize`` of an RGB image
-  (BICUBIC, a = -0.5, support scaled on downscale; horizontal pass, then
-  vertical, each through uint8 with 22-bit fixed-point coefficients —
-  Pillow's Resample.c ``precompute_coeffs`` and ``normalize_coeffs_8bpc``).
+- ``pil_resize_bicubic``: Pillow's default ``Image.resize`` of an 8-bit
+  image of any band count (BICUBIC, a = -0.5, support scaled on downscale;
+  horizontal pass, then vertical, each through uint8 with 22-bit fixed-point
+  coefficients — Pillow's Resample.c ``precompute_coeffs`` and
+  ``normalize_coeffs_8bpc``).
+- ``open_image`` and ``pil_resize``: ``PIL.Image.open(path)`` of a PNG or
+  JPEG file in mode L, P, RGB or RGBA, and its default ``resize``: bicubic
+  for L and RGB, bicubic on premultiplied alpha for RGBA (Pillow's RGBa
+  round trip), NEAREST in Pillow's coordinates for P.
 - ``paste_solid``: ``Image.paste(solid colour image, (0, 0), L mask)``,
   Pillow's integer blend DIV255(in1 * (255 - a) + in2 * a).
 - ``write_png``: an 8-bit gray or RGB PNG through zlib.
 - ``normalize_slice``: cv2.normalize(NORM_MINMAX, CV_8U).
-- ``read_png``: ``cv2.imread(path)`` (IMREAD_COLOR) of any PNG: every
-  colour type and bit depth, interlaced or not; BGR uint8, alpha dropped.
+- ``read_png``: ``cv2.imread(path)`` (IMREAD_COLOR) of any PNG (every
+  colour type and bit depth, interlaced or not; alpha dropped) or JPEG
+  (data/jpeg.py, EXIF orientation applied); BGR uint8.
 - ``resize_linear_u8``: ``cv2.resize(img, (w, h))`` (INTER_LINEAR) of a
   uint8 image, with cv2's 11-bit fixed-point coefficients, its rounding in
   the vertical pass and its switch to INTER_AREA for an exact 2x downscale.
@@ -21,10 +27,11 @@ from __future__ import annotations
 import binascii
 import struct
 import zlib
-from typing import Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 
+from octseg_torch.data.jpeg import ROADMAP_ITEM, decode_jpeg
 from octseg_torch.ops.resize import nearest_indices
 
 _PRECISION_BITS = 32 - 8 - 2
@@ -76,9 +83,9 @@ def _resample_axis(img: np.ndarray, axis: int, out_size: int) -> np.ndarray:
 
 
 def pil_resize_bicubic(img: np.ndarray, size: Sequence[int]) -> np.ndarray:
-    """uint8 (H, W, 3) -> (h, w, 3) for ``size = (w, h)`` (PIL's order), as
-    ``Image.fromarray(img).resize(size)``. A pass whose size does not change
-    is skipped."""
+    """uint8 (H, W) or (H, W, C) -> (h, w[, C]) for ``size = (w, h)`` (PIL's
+    order), as ``Image.fromarray(img).resize(size)`` (each band alike). A
+    pass whose size does not change is skipped."""
     out_w, out_h = int(size[0]), int(size[1])
     if out_w != img.shape[1]:
         img = _resample_axis(img, 1, out_w)
@@ -206,19 +213,9 @@ def _unpack_samples(rows: np.ndarray, n: int, depth: int) -> np.ndarray:
     return bits.reshape(rows.shape[0], -1)[:, :n]
 
 
-def read_png(path: str) -> np.ndarray:
-    """``cv2.imread(path)``: (H, W, 3) BGR uint8, as libpng expands for
-    IMREAD_COLOR. Every colour type and bit depth PNG allows, interlaced
-    (Adam7) or not: 16-bit samples keep their high byte, 1/2/4-bit gray is
-    scaled to 0..255, a palette is looked up (indices past its end read
-    black, tRNS is ignored), gray is replicated to three channels and alpha
-    is dropped. A JPEG file raises NotImplementedError."""
-    with open(path, 'rb') as f:
-        buf = f.read()
-    if buf[:3] == _JPEG_SOI:
-        raise NotImplementedError(
-            f'{path}: JPEG needs a decoder, which ROADMAP.md, "The image-directory '
-            f'predict path" adds; read_png reads PNG files')
+def _decode_png(buf: bytes, path: str) -> Tuple[np.ndarray, int, int, bytes]:
+    """(samples (H, W, samples per pixel) uint8 or uint16, colour type, bit
+    depth, PLTE bytes) of a PNG file; 1/2/4-bit samples unscaled."""
     if buf[:8] != _PNG_SIGNATURE:
         raise ValueError(f'{path}: not a PNG file')
     pos, idat, ihdr, plte = 8, [], None, b''
@@ -263,18 +260,144 @@ def read_png(path: str) -> np.ndarray:
         px = _unfilter(rows[:, 0], rows[:, 1:].reshape(ph, row_bytes // bpp, bpp))
         samples[y0::dy, x0::dx] = _unpack_samples(px.reshape(ph, row_bytes), pw * spp,
                                                   depth).reshape(ph, pw, spp)
+    return samples, color, depth, plte
+
+
+def _palette_table(plte: bytes) -> np.ndarray:
+    """(256, 3) uint8 RGB: the PLTE entries, black past its end."""
+    table = np.zeros((256, 3), np.uint8)
+    pal = np.frombuffer(plte[:len(plte) // 3 * 3], np.uint8).reshape(-1, 3)[:256]
+    table[:len(pal)] = pal
+    return table
+
+
+def _to_8bit(samples: np.ndarray, depth: int) -> np.ndarray:
+    """Samples as 8 bits: 16-bit keeps its high byte, 1/2/4-bit (gray) is
+    scaled to 0..255 (what libpng and Pillow both do)."""
     if depth == 16:
-        samples = (samples >> 8).astype(np.uint8)
-    if color == 3:
-        table = np.zeros((256, 3), np.uint8)
-        pal = np.frombuffer(plte[:len(plte) // 3 * 3], np.uint8).reshape(-1, 3)[:256]
-        table[:len(pal)] = pal
-        return np.ascontiguousarray(table[samples[..., 0], ::-1])
+        return (samples >> 8).astype(np.uint8)
     if depth < 8:
-        samples = samples * np.uint8(255 // ((1 << depth) - 1))
-    if spp <= 2:
-        return np.ascontiguousarray(np.repeat(samples[..., :1], 3, axis=-1))
-    return np.ascontiguousarray(samples[..., 2::-1])
+        return samples * np.uint8(255 // ((1 << depth) - 1))
+    return samples
+
+
+def read_png(path: str) -> np.ndarray:
+    """``cv2.imread(path)``: (H, W, 3) BGR uint8, as libpng and libjpeg
+    expand for IMREAD_COLOR. For a PNG, every colour type and bit depth PNG
+    allows, interlaced (Adam7) or not: 16-bit samples keep their high byte,
+    1/2/4-bit gray is scaled to 0..255, a palette is looked up (indices past
+    its end read black, tRNS is ignored), gray is replicated to three
+    channels and alpha is dropped. A JPEG file (the name is kept for its
+    callers) is decoded by data/jpeg.py, gray replicated and its EXIF
+    orientation applied."""
+    with open(path, 'rb') as f:
+        buf = f.read()
+    if buf[:3] == _JPEG_SOI:
+        img = decode_jpeg(buf, orient=True)
+        if img.ndim == 2:
+            return np.ascontiguousarray(np.repeat(img[..., None], 3, axis=-1))
+        return np.ascontiguousarray(img[..., ::-1])
+    samples, color, depth, plte = _decode_png(buf, path)
+    if color == 3:
+        return np.ascontiguousarray(_palette_table(plte)[samples[..., 0], ::-1])
+    px = _to_8bit(samples, depth)
+    if color in (0, 4):
+        return np.ascontiguousarray(np.repeat(px[..., :1], 3, axis=-1))
+    return np.ascontiguousarray(px[..., 2::-1])
+
+
+# ------------------------ PIL.Image.open and resize -------------------------
+
+class PilImage(NamedTuple):
+    """What ``PIL.Image.open`` holds for the modes the port reads: ``mode``
+    'L', 'P', 'RGB' or 'RGBA'; ``pixels`` as ``np.array(img)`` gives them
+    (uint8 (H, W) for L and P, whose values are palette indices; (H, W, 3)
+    or (H, W, 4) otherwise); ``palette`` (256, 3) uint8 for P."""
+    mode: str
+    pixels: np.ndarray
+    palette: Optional[np.ndarray] = None
+
+    @property
+    def size(self) -> Tuple[int, int]:
+        """(width, height), PIL's order."""
+        return self.pixels.shape[1], self.pixels.shape[0]
+
+    def to_rgb(self) -> np.ndarray:
+        """``img.convert('RGB')`` as (H, W, 3) uint8: a palette looked up
+        (transparency ignored), gray replicated, alpha dropped."""
+        if self.mode == 'P':
+            return self.palette[self.pixels]
+        if self.mode == 'L':
+            return np.repeat(self.pixels[..., None], 3, axis=-1)
+        return np.ascontiguousarray(self.pixels[..., :3])
+
+
+def _unsupported_mode(path: str, mode: str) -> NotImplementedError:
+    return NotImplementedError(
+        f'{path}: PIL opens this file in mode {mode}, which octseg_torch does not read '
+        f'(it reads L, P, RGB and RGBA) ({ROADMAP_ITEM})')
+
+
+def open_image(path: str) -> PilImage:
+    """``PIL.Image.open(path)`` of a PNG or JPEG file (no EXIF orientation,
+    as PIL). Modes other than L, P, RGB and RGBA (1-bit, 16-bit gray and
+    8-bit gray-alpha PNGs; CMYK JPEGs) raise NotImplementedError."""
+    with open(path, 'rb') as f:
+        buf = f.read()
+    if buf[:3] == _JPEG_SOI:
+        img = decode_jpeg(buf)
+        return PilImage('L' if img.ndim == 2 else 'RGB', img)
+    samples, color, depth, plte = _decode_png(buf, path)
+    if color == 3:
+        return PilImage('P', np.ascontiguousarray(samples[..., 0]), _palette_table(plte))
+    if color == 0:
+        if depth == 1 or depth == 16:
+            raise _unsupported_mode(path, '1' if depth == 1 else 'I;16')
+        return PilImage('L', np.ascontiguousarray(_to_8bit(samples, depth)[..., 0]))
+    if color == 4:
+        if depth == 8:
+            raise _unsupported_mode(path, 'LA')
+        g = _to_8bit(samples, 16)   # Pillow reads 16-bit gray-alpha as RGBA
+        return PilImage('RGBA', np.ascontiguousarray(g[..., [0, 0, 0, 1]]))
+    return PilImage('RGB' if color == 2 else 'RGBA',
+                    np.ascontiguousarray(_to_8bit(samples, depth)))
+
+
+def _pil_nearest_indices(in_size: int, out_size: int) -> np.ndarray:
+    """Pillow's NEAREST source index per output pixel: the centre position,
+    accumulated by repeated float64 addition of the scale as its affine
+    scaler does, truncated."""
+    scale = in_size / out_size
+    pos = np.add.accumulate(np.concatenate([[scale * 0.5], np.full(out_size - 1, scale)]))
+    return np.minimum(pos.astype(np.int64), in_size - 1)
+
+
+def _muldiv255(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    t = a.astype(np.int64) * b + 128
+    return ((t >> 8) + t) >> 8
+
+
+def pil_resize(img: PilImage, size: Sequence[int]) -> PilImage:
+    """``img.resize(size)`` with Pillow's default filter for the mode,
+    ``size = (w, h)``."""
+    out_w, out_h = int(size[0]), int(size[1])
+    if (out_w, out_h) == img.size:
+        return PilImage(img.mode, img.pixels.copy(), img.palette)
+    if img.mode == 'P':
+        rows = _pil_nearest_indices(img.pixels.shape[0], out_h)
+        cols = _pil_nearest_indices(img.pixels.shape[1], out_w)
+        return PilImage('P', np.ascontiguousarray(img.pixels[rows][:, cols]), img.palette)
+    if img.mode == 'RGBA':
+        # RGBA -> RGBa (premultiplied, rounded) -> resize -> RGBA (truncated)
+        px = img.pixels.astype(np.int64)
+        alpha = px[..., 3:]
+        pre = np.concatenate([_muldiv255(px[..., :3], alpha), alpha], -1).astype(np.uint8)
+        res = pil_resize_bicubic(pre, (out_w, out_h)).astype(np.int64)
+        a = res[..., 3:]
+        un = np.where((a == 0) | (a == 255), res[..., :3],
+                      np.minimum(255 * res[..., :3] // np.maximum(a, 1), 255))
+        return PilImage('RGBA', np.concatenate([un, a], -1).astype(np.uint8))
+    return PilImage(img.mode, pil_resize_bicubic(img.pixels, (out_w, out_h)))
 
 
 # ------------------------- cv2 resize of uint8 images -----------------------

@@ -1,10 +1,16 @@
 """Hybrid per-feature ensemble inference on one GPU.
 
-The port of octseg/infer/engine.py's pullback path. Each routed model runs
-once per frame block, even when it serves two classes; on the device a block
-goes uint8 frames -> BGR float -> bilinear resize to the model size ->
-forward -> sigmoid -> output resize -> threshold -> bitpack, and the host
-expands the bits into the routed channels of the (N, H, W, 4) mask block.
+The port of octseg/infer/engine.py: the pullback path (``iter_pullback``,
+``segment_pullback``) and the image path (``segment``, ``run_model``). Each
+routed model runs once per frame block, even when it serves two classes. On
+the pullback path a block goes uint8 frames -> BGR float -> bilinear resize
+to the model size on the device (octseg's ``device_preprocess=True``
+program); on the image path the host has already made uint8 BGR frames at
+the model size (``data/utils.preprocessing_img``: Pillow's resize to the
+output size, then cv2's INTER_LINEAR to the input size) and the device only
+makes them float (``device_preprocess=False``). Then forward -> sigmoid ->
+output resize -> threshold -> bitpack, and the host expands the bits into
+the routed channels of the (N, H, W, 4) masks.
 
 Kept from the reference: MODELS_META routing; the two ``output_resize``
 modes; the reference predict() quirk (BGR floats 0..255, ImageNet mean/std
@@ -19,21 +25,25 @@ floors it on one device. Each model runs the block in chunks (octseg's
 ``_block_for`` and chunked dispatch, on one card): the largest chunk, the
 block and then the powers of two below it, whose peak device memory fits.
 The peak is predicted from a measured probe, not from a caught
-out-of-memory error: the model's forward runs on zeros at two small chunk
-sizes, a line through their peak allocations gives fixed bytes plus bytes
-per frame, and the chunk's predicted peak must fit CHUNK_MARGIN of the
-device memory still free (``torch.cuda.mem_get_info`` plus the allocator's
-cached, unallocated bytes) less what the block's pipeline keeps resident
-beside it. Every model of the plan is loaded before the probe, so its
-parameters are already allocated and outside that free memory. The render's
-postprocess buffers (fill and ring, 12 B per mask pixel) are not counted:
+out-of-memory error: the model's forward (the variant that will run, at
+its frame shape) runs on zeros at two small chunk sizes, a line through
+their peak allocations gives fixed bytes plus bytes per frame, and the
+chunk's predicted peak must fit CHUNK_MARGIN of the device memory still
+free (``torch.cuda.mem_get_info`` plus the allocator's cached, unallocated
+bytes) less what the block's pipeline keeps resident beside it. Every
+model of the plan is loaded before the probe, so its parameters are
+already allocated and outside that free memory. The render's postprocess
+buffers (fill and ring, 12 B per mask pixel) are not counted:
 they are allocated after the block's forwards have returned their
 activations to the allocator's cache, and reuse it (chip_smoke.py's block
 memory phase checks this). On the CPU there is no probe: the chunk is the
 block.
 
-Not ported: bf16 (ROADMAP.md, "Memory-driven block sizing, then bf16"); the
-device mesh, int8 and AOT exports ("Opt-in, last").
+``bf16=True`` builds every model with bfloat16 compute (octseg's
+``compute_dtype``: float32 parameters, bfloat16 convolutions, float32
+BatchNorm and logits; models/common.py); the probe measures its smaller
+activations like any others. Not ported: the device mesh, int8 and AOT
+exports (ROADMAP.md, "Opt-in, last").
 
 fp32 convolutions run with TF32 off (``torch.backends.cudnn.flags(...,
 allow_tf32=False)``) and so do matmuls (``torch.backends.cuda.matmul
@@ -46,6 +56,7 @@ import contextlib
 import json
 import logging
 import os
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Iterator, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -53,9 +64,11 @@ import torch
 
 from octseg_torch import resolve_device
 from octseg_torch.core.registry import CLASS_IDS
+from octseg_torch.data.image import PilImage
+from octseg_torch.data.utils import preprocessing_img
 from octseg_torch.models import create_model
 from octseg_torch.models.convert import variables_to_state_dict
-from octseg_torch.ops.bitpack import pack_mask_bits, unpack_route_into
+from octseg_torch.ops.bitpack import pack_mask_bits, unpack_mask_bits, unpack_route_into
 from octseg_torch.ops.normalize import normalize_imagenet, sigmoid_threshold
 from octseg_torch.ops.resize import resize_bilinear_nchw, resize_nearest_nchw
 from octseg_torch.train.checkpoint import load_weights
@@ -130,13 +143,15 @@ def fp32_exact():
         torch.backends.cuda.matmul.allow_tf32 = prev
 
 
-def load_model_bundle(model_dir: str, device) -> Tuple[torch.nn.Module, dict]:
-    """(model in eval mode on ``device``, manifest) from a model dir
-    (config.json + weights.ckpt in the flax msgpack layout)."""
+def load_model_bundle(model_dir: str, device, dtype: torch.dtype = torch.float32
+                      ) -> Tuple[torch.nn.Module, dict]:
+    """(model in eval mode on ``device``, computing in ``dtype``, manifest)
+    from a model dir (config.json + weights.ckpt in the flax msgpack
+    layout)."""
     with open(os.path.join(model_dir, 'config.json')) as f:
         model_cfg = json.load(f)
     arch, encoder = model_cfg['architecture'], model_cfg['encoder']
-    model = create_model(arch, encoder, classes=len(model_cfg['classes']))
+    model = create_model(arch, encoder, classes=len(model_cfg['classes']), dtype=dtype)
     sd = variables_to_state_dict(
         load_weights(os.path.join(model_dir, 'weights.ckpt')), arch, encoder)
     model.load_state_dict({k: torch.from_numpy(np.array(v)) for k, v in sd.items()})
@@ -148,7 +163,7 @@ class InferenceEngine:
 
     def __init__(self, models_dir: str, classes: Sequence[str],
                  block_size: int = 128, output_resize: str = 'prob_bilinear',
-                 device=None):
+                 device=None, bf16: bool = False):
         # output_resize: 'prob_bilinear' (default) resizes the sigmoid
         # probabilities bilinearly, then thresholds at 0.5; 'nearest' is the
         # reference's contract (threshold, then cv2 NEAREST resize)
@@ -162,22 +177,27 @@ class InferenceEngine:
         # the reference's per-device quota is a power of two; one device here
         self.block_size = 1 << (int(block_size).bit_length() - 1)
         self.device = resolve_device(device)
+        self.compute_dtype = torch.bfloat16 if bf16 else torch.float32
         self._bundles: Dict[str, tuple] = {}
-        # (model dir, block frame shape, output size) -> ChunkPlan
+        # (model dir, forward variant, block frame shape, output size) -> ChunkPlan
         self.chunk_plans: Dict[tuple, ChunkPlan] = {}
 
     def _bundle(self, model_dir_name: str):
         if model_dir_name not in self._bundles:
             path = os.path.join(self.models_dir, model_dir_name)
-            self._bundles[model_dir_name] = load_model_bundle(path, self.device)
+            self._bundles[model_dir_name] = load_model_bundle(path, self.device,
+                                                              self.compute_dtype)
             log.info('Loaded model %s', path)
         return self._bundles[model_dir_name]
 
-    def _forward_fn(self, model_dir_name: str, out_h: int, out_w: int):
-        """Callable: uint8 (B, H, W, 1 or 3) RGB frames at native size on
-        the device -> bitpacked masks on the device, (B, out_h,
-        ceil(out_w / 8), C) uint8 with C the model's classes. Preprocessing
-        runs on the device (octseg's ``device_preprocess=True`` program)."""
+    def _forward_fn(self, model_dir_name: str, out_h: int, out_w: int,
+                    device_preprocess: bool = True):
+        """Callable: frames on the device -> bitpacked masks on the device,
+        (B, out_h, ceil(out_w / 8), C) uint8 with C the model's classes.
+        ``device_preprocess`` (the pullback variant): uint8 (B, H, W, 1 or
+        3) RGB frames at native size, made BGR and resized on the device;
+        otherwise (the image variant) uint8 (B, S, S, 3) BGR frames at the
+        model's input size S, made float on the device."""
         model, model_cfg = self._bundle(model_dir_name)
         input_size = int(model_cfg['input_size'])
         # octseg-trained manifests say normalize=true; an absent key is the
@@ -187,12 +207,15 @@ class InferenceEngine:
 
         def forward(imgs: torch.Tensor) -> torch.Tensor:
             with torch.inference_mode(), fp32_exact():
-                # RGB -> BGR (an identity on one channel), then resize; a
-                # mono frame broadcasts to 3 channels after the resize
-                x = imgs.flip(-1).float().permute(0, 3, 1, 2)
-                x = resize_bilinear_nchw(x, (input_size, input_size))
-                if x.shape[1] == 1:
-                    x = x.expand(-1, 3, -1, -1)
+                if device_preprocess:
+                    # RGB -> BGR (an identity on one channel), then resize; a
+                    # mono frame broadcasts to 3 channels after the resize
+                    x = imgs.flip(-1).float().permute(0, 3, 1, 2)
+                    x = resize_bilinear_nchw(x, (input_size, input_size))
+                    if x.shape[1] == 1:
+                        x = x.expand(-1, 3, -1, -1)
+                else:
+                    x = imgs.float().permute(0, 3, 1, 2)
                 if normalize:
                     x = normalize_imagenet(x, channel_dim=1)
                 logits = model(x.contiguous())
@@ -207,10 +230,11 @@ class InferenceEngine:
 
     def _memory_probe(self, forward, frame_shape: Sequence[int]
                       ) -> Optional[Tuple[List[Tuple[int, int]], int, int]]:
-        """On the GPU: ([(frames, peak bytes)] of ``forward`` on zeros at
-        PROBE_CHUNKS frames, peaks counted above the allocation before each
-        run; the bytes allocated now; the bytes that can still be allocated).
-        None on the CPU. Resets the device's peak-memory counter."""
+        """On the GPU: ([(frames, peak bytes)] of ``forward`` on uint8 zeros
+        at PROBE_CHUNKS frames, peaks counted above the allocation before
+        each run; the bytes allocated now; the bytes that can still be
+        allocated). None on the CPU. Resets the device's peak-memory
+        counter."""
         if self.device.type != 'cuda':
             return None
         samples = []
@@ -227,12 +251,16 @@ class InferenceEngine:
         free, _total = torch.cuda.mem_get_info(self.device)
         return samples, allocated, free + torch.cuda.memory_reserved(self.device) - allocated
 
-    def _chunk_for(self, name: str, forward, frame_shape: Sequence[int],
+    def _chunk_for(self, name: str, variant: str, forward, frame_shape: Sequence[int],
                    out_hw: Tuple[int, int], resident: int) -> int:
-        """The chunk ``name`` runs a block of ``frame_shape`` in, decided once
-        per (model, block frame shape, output size); ``resident``: device
-        bytes the pipeline holds beside a chunk that are not allocated yet."""
-        key = (name, tuple(frame_shape), tuple(out_hw))
+        """The chunk ``name`` runs a block of ``frame_shape`` frames in,
+        decided once per (model, forward variant, block frame shape, output
+        size): the pullback variant (frames at native size, resized on the
+        device) and the image variant (frames at the input size) may share a
+        frame shape and need different memory, so a plan of one is never
+        reused for the other. ``resident``: device bytes the caller holds
+        beside a chunk that are not allocated yet."""
+        key = (name, variant, tuple(frame_shape), tuple(out_hw))
         if key not in self.chunk_plans:
             probe = self._memory_probe(forward, frame_shape)
             if probe is None:
@@ -300,7 +328,8 @@ class InferenceEngine:
                            for name in plan)
         resident = 2 * (eb * int(np.prod(frames.shape[1:])) + packed_bytes)
         block_shape = (eb, *frames.shape[1:])
-        runs = {name: (fwd, self._chunk_for(name, fwd, block_shape, (out_h, out_w), resident))
+        runs = {name: (fwd, self._chunk_for(name, 'pullback', fwd, block_shape, (out_h, out_w),
+                                            resident))
                 for name, fwd in forwards.items()}
         # two pinned upload slots: block k fills slot k % 2 while the copy
         # of block k - 1 from the other slot may still be in flight
@@ -352,3 +381,48 @@ class InferenceEngine:
         for start, block in self.iter_pullback(frames, output_size):
             result[start:start + block.shape[0]] = block
         return result
+
+    def run_model(self, model_dir_name: str, images: Sequence[PilImage],
+                  output_size: Sequence[int]) -> np.ndarray:
+        """All images through one model (octseg's ``run_model``): (N, out_h,
+        out_w, C) uint8 {0,1} masks, C the model's classes. Blocks of
+        ``block_size`` images are preprocessed on the host (a thread pool:
+        numpy releases the interpreter lock) and run in chunks chosen by the
+        probe of the image variant."""
+        out_h, out_w = int(output_size[0]), int(output_size[1])
+        fwd = self._forward_fn(model_dir_name, out_h, out_w, device_preprocess=False)
+        model_cfg = self._bundle(model_dir_name)[1]
+        size, n_cls = int(model_cfg['input_size']), len(model_cfg['classes'])
+        n = len(images)
+        result = np.zeros((n, out_h, out_w, n_cls), np.uint8)
+        if n == 0:
+            return result
+        eb = min(self.block_size, n)
+        # beside a chunk: the block's frames and its packed masks
+        resident = eb * size * size * 3 + eb * out_h * ((out_w + 7) // 8) * n_cls
+        chunk = self._chunk_for(model_dir_name, 'images', fwd, (eb, size, size, 3),
+                                (out_h, out_w), resident)
+        with ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as pool:
+            for start in range(0, n, eb):
+                frames = np.stack(list(pool.map(lambda img: preprocessing_img(img, size),
+                                                images[start:start + eb])))
+                dev = torch.from_numpy(frames).to(self.device)
+                packed = torch.cat([fwd(dev[s:s + chunk]) for s in range(0, len(frames), chunk)])
+                result[start:start + len(frames)] = unpack_mask_bits(packed.cpu().numpy(), out_w)
+        return result
+
+    def segment(self, images: Sequence[PilImage], masks: List[np.ndarray],
+                output_size: Sequence[int]) -> List[np.ndarray]:
+        """Fill the routed channels of the (out_h, out_w, 4) ``masks``, one
+        per image, in place (octseg's ``segment``); each model runs once even
+        when it serves two classes. Every model is loaded before any is
+        probed. Returns ``masks``."""
+        plan = self._ensemble_plan()
+        for name in plan:
+            self._bundle(name)
+        for name, class_routes in plan.items():
+            pred = self.run_model(name, images, output_size)
+            for _cls, ch, mask_ch in class_routes:
+                for i, mask in enumerate(masks):
+                    mask[:, :, mask_ch] = pred[i, :, :, ch]
+        return masks

@@ -1,13 +1,20 @@
-"""Hybrid ensemble prediction entry point, DICOM pullback path.
+"""Hybrid ensemble prediction entry point.
 
-The port of octseg/infer/predict.py for ``data_dir`` pointing at a DICOM
-pullback: frames stream through ``InferenceEngine.iter_pullback`` block by
-block and each frame gets the reference's ``{base}_{i}_overlay.png`` and
-``_mask.png``. A ``data_dir`` that is a directory of images is the next
-slice of the port (ROADMAP.md, "The image-directory predict path").
+The port of octseg/infer/predict.py. ``data_dir`` may be:
+
+- a DICOM pullback (native or JPEG Baseline/Extended pixel data): frames
+  stream through ``InferenceEngine.iter_pullback`` block by block and each
+  frame gets the reference's ``{base}_{i}_overlay.png`` and ``_mask.png``;
+- a directory of PNG and JPEG images, or one image file (the reference's
+  path, configs/predict.yaml's default): ``data_processing`` reads and
+  resizes them, ``InferenceEngine.segment`` fills their masks and
+  ``save_results`` writes ``{name}_overlay.png`` and ``{name}_mask.png``.
+
+``bf16: true`` runs the models with bfloat16 compute; ``int8: true`` raises
+(ROADMAP.md, "Opt-in, last").
 
 Config: configs/predict.yaml (the reference's keys).
-Usage: python -m octseg_torch.infer.predict data_dir=<pullback.dcm> \\
+Usage: python -m octseg_torch.infer.predict data_dir=<pullback.dcm or image dir> \\
     models_dir=... save_dir=... output_size=[1000,1000]
 ``device`` (default ``auto``: the GPU) may be ``cpu``.
 """
@@ -26,14 +33,13 @@ import octseg_torch
 from octseg_torch.core.config import Config, entry_point
 from octseg_torch.data import dicom
 from octseg_torch.data.image import normalize_slice, pil_resize_bicubic
-from octseg_torch.data.utils import save_results
+from octseg_torch.data.utils import data_processing, save_results
 from octseg_torch.infer.engine import InferenceEngine
 
 log = logging.getLogger(__name__)
 
 # keys that octseg's predict passes to its engine and the port does not run
 _NOT_PORTED = {
-    'bf16': 'bf16 compute is ROADMAP.md, "Memory-driven block sizing, then bf16"',
     'int8': 'int8 weights are ROADMAP.md, "Opt-in, last"',
 }
 
@@ -105,38 +111,58 @@ def _predict_dicom(cfg: Config, dcm_path: str, engine: InferenceEngine,
     return int(frames.shape[0]), seconds
 
 
+def _predict_images(cfg: Config, data_dir: str, engine: InferenceEngine,
+                    save_dir: str) -> Tuple[int, Dict[str, float]]:
+    """The image path: read and resize the images, segment them, write the
+    PNGs. Returns the image count and the wall seconds per stage: decode
+    (reading, decoding and resizing to the output size), engine (host
+    preprocessing to each model's input size, forwards, bit expansion),
+    render (postprocess, compositing, PNG encoding)."""
+    t = time.perf_counter()
+    images, masks, names = data_processing(data_dir, save_dir, cfg.output_size)
+    seconds = {'decode': time.perf_counter() - t}
+    log.info('Number of images: %d', len(names))
+    t = time.perf_counter()
+    masks = engine.segment(images, masks, cfg.output_size)
+    seconds['engine'] = time.perf_counter() - t
+    t = time.perf_counter()
+    save_results(images=[img.to_rgb() for img in images], masks=masks, images_name=names,
+                 classes=list(cfg.classes), save_dir=save_dir, device=engine.device)
+    seconds['render'] = time.perf_counter() - t
+    return len(names), seconds
+
+
 def _abs(path: str) -> str:
     return path if os.path.isabs(path) else os.path.join(octseg_torch.PROJECT_DIR, path)
 
 
 @entry_point('predict')
 def main(cfg: Config) -> Dict[str, object]:
-    """Run the DICOM predict path; returns ``{'frames': n, 'seconds':
-    {stage: s}, 'chunks': {model dir: frames per forward}}``."""
+    """Run the predict path for a DICOM pullback or an image directory;
+    returns ``{'frames': n, 'seconds': {stage: s}, 'chunks': {model dir:
+    frames per forward}}``."""
     for key, why in _NOT_PORTED.items():
         if cfg.get(key, False):
             raise NotImplementedError(f'{key}: true is not ported: {why}')
     data_dir, models_dir, save_dir = (_abs(cfg.data_dir), _abs(cfg.models_dir),
                                       _abs(cfg.save_dir))
-    if not _is_dicom(data_dir):
-        raise NotImplementedError(
-            f'{data_dir} is not a DICOM pullback: octseg_torch predicts DICOM '
-            f'pullbacks; the image-directory path (PNG decode, cv2 INTER_LINEAR '
-            f'preprocessing, engine.segment) is ROADMAP.md, "The image-directory '
-            f'predict path"')
     start = time.perf_counter()
     engine = InferenceEngine(
         models_dir=models_dir, classes=list(cfg.classes),
         block_size=int(cfg.get('block_size', 128)),
         output_resize=str(cfg.get('output_resize', 'prob_bilinear')),
-        device=cfg.get('device', 'auto'))
-    os.makedirs(save_dir, exist_ok=True)
-    n, seconds = _predict_dicom(cfg, data_dir, engine, save_dir)
+        device=cfg.get('device', 'auto'), bf16=bool(cfg.get('bf16', False)))
+    pullback = _is_dicom(data_dir)
+    if pullback:
+        os.makedirs(save_dir, exist_ok=True)
+        n, seconds = _predict_dicom(cfg, data_dir, engine, save_dir)
+    else:
+        n, seconds = _predict_images(cfg, data_dir, engine, save_dir)
     seconds['total'] = time.perf_counter() - start
-    log.info('Pullback frames: %d', n)
+    log.info('%s: %d', 'Pullback frames' if pullback else 'Images', n)
     log.info('Seconds per stage: %s', {k: round(v, 3) for k, v in seconds.items()})
     log.info('Complete')
-    chunks = {name: plan.chunk for (name, _shape, _out), plan in engine.chunk_plans.items()}
+    chunks = {key[0]: plan.chunk for key, plan in engine.chunk_plans.items()}
     return {'frames': n, 'seconds': seconds, 'chunks': chunks}
 
 

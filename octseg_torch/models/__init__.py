@@ -1,4 +1,4 @@
-"""Model registry: ``create_model(arch, encoder, classes)``.
+"""Model registry: ``create_model(arch, encoder, classes, dtype, remat)``.
 
 Ported so far: the Unet, UnetPlusPlus and LinkNet decoders over every
 resnet, efficientnet and timm-regnet encoder at output stride 32. The other
@@ -9,10 +9,14 @@ octseg's ``normalize_arch`` does.
 
 from __future__ import annotations
 
+import torch
+
 from octseg_torch.models.base import SegmentationModel
+from octseg_torch.models.common import set_compute_dtype
 from octseg_torch.models.decoders.linknet import LinkNetDecoder
 from octseg_torch.models.decoders.unet import UnetDecoder, UnetPlusPlusDecoder
 from octseg_torch.models.encoders import SUPPORTED_ENCODERS, create_encoder
+from octseg_torch.models.remat import set_block_remat
 
 # arch key -> (decoder class, head input width, head kernel): SMP's
 # SegmentationHead kernel is 3 for Unet/UNet++ and 1 for Linknet
@@ -35,7 +39,12 @@ def normalize_arch(arch: str) -> str:
     return key
 
 
-def create_model(arch: str, encoder_name: str, classes: int = 1) -> SegmentationModel:
+def create_model(arch: str, encoder_name: str, classes: int = 1,
+                 dtype: torch.dtype = torch.float32, remat: bool = False) -> SegmentationModel:
+    """A model with float32 parameters that computes its convolutions in
+    ``dtype`` (octseg's ``dtype``: bfloat16 for mixed precision; logits are
+    float32 either way, models/common.py) and, with ``remat``, checkpoints
+    its blocks in training (models/remat.py)."""
     key = normalize_arch(arch)
     if key not in _ARCHS:
         raise NotImplementedError(
@@ -45,8 +54,9 @@ def create_model(arch: str, encoder_name: str, classes: int = 1) -> Segmentation
             f'ROADMAP.md "The rest of the model zoo"')
     decoder_cls, head_in, head_kernel = _ARCHS[key]
     encoder = create_encoder(encoder_name)
-    return SegmentationModel(encoder, decoder_cls(encoder.out_channels), head_in=head_in,
-                             classes=classes, head_kernel=head_kernel)
+    model = SegmentationModel(encoder, decoder_cls(encoder.out_channels), head_in=head_in,
+                              classes=classes, head_kernel=head_kernel)
+    return set_block_remat(set_compute_dtype(model, dtype), remat)
 
 
 __all__ = ['create_model', 'normalize_arch', 'SUPPORTED_ARCHITECTURES', 'SUPPORTED_ENCODERS',

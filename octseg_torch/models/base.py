@@ -11,6 +11,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from octseg_torch.models.common import Conv2d
+
 
 class SegmentationModel(nn.Module):
     def __init__(self, encoder: nn.Module, decoder: nn.Module, head_in: int,
@@ -19,7 +21,8 @@ class SegmentationModel(nn.Module):
         self.encoder = encoder
         self.decoder = decoder
         self.segmentation_head = nn.Sequential(
-            nn.Conv2d(head_in, classes, head_kernel, padding=head_kernel // 2))
+            Conv2d(head_in, classes, head_kernel, padding=head_kernel // 2))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.segmentation_head(self.decoder(self.encoder(x)))
+        # logits in float32 whatever the compute dtype, as octseg's head
+        return self.segmentation_head(self.decoder(self.encoder(x))).float()

@@ -15,16 +15,28 @@ E[(x - E[x])^2], which differs in rounding only.
 ``Conv2dSame`` pads as XLA's ``padding='SAME'`` (TF SAME, what
 efficientnet-pytorch's Conv2dStaticSamePadding does): asymmetric, the odd
 pixel after, computed from the input size at each call.
+
+Compute dtype (octseg's ``dtype``, set by ``set_compute_dtype``): with
+bfloat16, every convolution casts its input, weight and bias to bfloat16 at
+use and returns bfloat16, as flax's ``nn.Conv(dtype=bfloat16)`` does, and
+every BatchNorm computes in float32 and returns its input's dtype, as
+flax's ``nn.BatchNorm(dtype=bfloat16)`` does; parameters and running
+statistics stay float32. In training, a BatchNorm that runs again while a
+checkpointed block is recomputed in the backward (models/remat.py) leaves
+its running statistics alone: they move once per step, as in flax, whose
+recomputation is functional.
 """
 
 from __future__ import annotations
 
 from collections import OrderedDict
-from typing import Callable, Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from octseg_torch.models.remat import recomputing
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -32,16 +44,56 @@ class BatchNorm2d(nn.BatchNorm2d):
     FLAX_MOMENTUM = 0.9
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # a bfloat16 input takes torch's mixed-type kernel: float32 statistics
+        # and arithmetic with the float32 parameters, one rounding to
+        # bfloat16 at the output, and no float32 copy of the activations
         if not self.training:
             return super().forward(x)
         y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
-        with torch.no_grad():
-            var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
-            m = self.FLAX_MOMENTUM
-            self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
-            self.running_var.copy_(m * self.running_var + (1 - m) * var)
-            self.num_batches_tracked.add_(1)
+        if not recomputing():
+            with torch.no_grad():
+                # float32 statistics of a bfloat16 input (no copy for float32)
+                var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), unbiased=False)
+                m = self.FLAX_MOMENTUM
+                self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+                self.num_batches_tracked.add_(1)
         return y
+
+
+class _ComputeDtype:
+    """Mixin of the convolutions: ``compute_dtype`` None computes in the
+    parameters' dtype; a dtype casts input, weight and bias to it at use."""
+
+    compute_dtype: Optional[torch.dtype] = None
+
+    def cast(self, x: torch.Tensor):
+        """(input, weight, bias) in the compute dtype."""
+        dt = self.compute_dtype
+        if dt is None:
+            return x, self.weight, self.bias
+        return x.to(dt), self.weight.to(dt), None if self.bias is None else self.bias.to(dt)
+
+
+class Conv2d(_ComputeDtype, nn.Conv2d):
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._conv_forward(*self.cast(x))
+
+
+class ConvTranspose2d(_ComputeDtype, nn.ConvTranspose2d):
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x, w, b = self.cast(x)
+        return F.conv_transpose2d(x, w, b, self.stride, self.padding, self.output_padding,
+                                  self.groups, self.dilation)
+
+
+def set_compute_dtype(model: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """Every convolution of ``model`` computes in ``dtype`` (float32: in
+    its parameters' dtype). Returns ``model``."""
+    for mod in model.modules():
+        if isinstance(mod, _ComputeDtype):
+            mod.compute_dtype = None if dtype == torch.float32 else dtype
+    return model
 
 
 def same_padding(size: int, kernel: int, stride: int, dilation: int = 1) -> Tuple[int, int]:
@@ -50,7 +102,7 @@ def same_padding(size: int, kernel: int, stride: int, dilation: int = 1) -> Tupl
     return total // 2, total - total // 2
 
 
-class Conv2dSame(nn.Conv2d):
+class Conv2dSame(Conv2d):
     """nn.Conv2d with XLA SAME padding. Symmetric cases (every stride-1 odd
     kernel) pass the padding to the convolution; asymmetric ones (stride 2
     over an even size) pad the input first."""
@@ -63,11 +115,11 @@ class Conv2dSame(nn.Conv2d):
         (top, bottom), (left, right) = (
             same_padding(size, k, s, d) for size, k, s, d in
             zip(x.shape[-2:], self.kernel_size, self.stride, self.dilation))
+        x, w, b = self.cast(x)
         if top == bottom and left == right:
-            return F.conv2d(x, self.weight, self.bias, self.stride, (top, left),
-                            self.dilation, self.groups)
+            return F.conv2d(x, w, b, self.stride, (top, left), self.dilation, self.groups)
         x = F.pad(x, (left, right, top, bottom))
-        return F.conv2d(x, self.weight, self.bias, self.stride, 0, self.dilation, self.groups)
+        return F.conv2d(x, w, b, self.stride, 0, self.dilation, self.groups)
 
 
 class ConvBNAct(nn.Sequential):
@@ -82,8 +134,8 @@ class ConvBNAct(nn.Sequential):
     def __init__(self, in_ch: int, out_ch: int, kernel: int = 3, stride: int = 1,
                  dilation: int = 1, act: bool = True, groups: int = 1):
         pad = dilation * (kernel - 1) // 2
-        layers = [nn.Conv2d(in_ch, out_ch, kernel, stride, pad, dilation, groups=groups,
-                            bias=False),
+        layers = [Conv2d(in_ch, out_ch, kernel, stride, pad, dilation, groups=groups,
+                         bias=False),
                   BatchNorm2d(out_ch)]
         if act:
             layers.append(nn.ReLU(inplace=True))
@@ -103,8 +155,8 @@ class SqueezeExcite(nn.Module):
 
     def __init__(self, channels: int, reduced: int):
         super().__init__()
-        self.fc1 = nn.Conv2d(channels, reduced, 1)
-        self.fc2 = nn.Conv2d(reduced, channels, 1)
+        self.fc1 = Conv2d(channels, reduced, 1)
+        self.fc2 = Conv2d(reduced, channels, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return squeeze_excite(x, self.fc1, self.fc2, F.relu)

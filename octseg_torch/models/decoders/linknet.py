@@ -16,16 +16,17 @@ from typing import List, Sequence
 import torch
 from torch import nn
 
-from octseg_torch.models.common import BatchNorm2d, ConvBNAct
+from octseg_torch.models.common import BatchNorm2d, ConvBNAct, ConvTranspose2d
+from octseg_torch.models.remat import RematBlock
 
 
-class LinkNetDecoderBlock(nn.Module):
+class LinkNetDecoderBlock(RematBlock):
     def __init__(self, in_ch: int, out_ch: int):
         super().__init__()
         mid = in_ch // 4
         self.block = nn.Sequential(
             ConvBNAct(in_ch, mid, 1),
-            nn.Sequential(nn.ConvTranspose2d(mid, mid, 4, 2, 1, bias=False),
+            nn.Sequential(ConvTranspose2d(mid, mid, 4, 2, 1, bias=False),
                           BatchNorm2d(mid), nn.ReLU(inplace=True)),
             ConvBNAct(mid, out_ch, 1))
 

@@ -14,9 +14,10 @@ import torch
 from torch import nn
 
 from octseg_torch.models.common import ConvBNAct, upsample2x
+from octseg_torch.models.remat import RematBlock
 
 
-class DecoderBlock(nn.Module):
+class DecoderBlock(RematBlock):
     def __init__(self, in_ch: int, out_ch: int):
         super().__init__()
         self.conv1 = ConvBNAct(in_ch, out_ch, 3)

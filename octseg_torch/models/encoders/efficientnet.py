@@ -20,7 +20,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from octseg_torch.models.common import BatchNorm2d, Conv2dSame, squeeze_excite
+from octseg_torch.models.common import BatchNorm2d, Conv2d, Conv2dSame, squeeze_excite
+from octseg_torch.models.remat import RematBlock
 
 BN_EPS = 1e-3
 
@@ -81,7 +82,7 @@ def efficientnet_out_channels(name: str) -> Sequence[int]:
     return (3, _round_channels(32, width_mult), *taps)
 
 
-class MBConv(nn.Module):
+class MBConv(RematBlock):
     """Expand 1x1 (swish; none when expand = 1), depthwise kxk (swish),
     squeeze-excite on ``max(1, int(in * 0.25))`` channels (swish), project
     1x1 (no activation); the residual when stride = 1 and in = out."""
@@ -97,8 +98,8 @@ class MBConv(nn.Module):
         self._depthwise_conv = Conv2dSame(mid, mid, kernel, stride, groups=mid)
         self._bn1 = BatchNorm2d(mid, eps=BN_EPS)
         reduced = max(1, int(in_ch * 0.25))
-        self._se_reduce = nn.Conv2d(mid, reduced, 1)
-        self._se_expand = nn.Conv2d(reduced, mid, 1)
+        self._se_reduce = Conv2d(mid, reduced, 1)
+        self._se_expand = Conv2d(reduced, mid, 1)
         self._project_conv = Conv2dSame(mid, out_ch, 1)
         self._bn2 = BatchNorm2d(out_ch, eps=BN_EPS)
 

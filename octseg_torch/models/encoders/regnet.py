@@ -19,6 +19,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from octseg_torch.models.common import ConvBNAct, SqueezeExcite
+from octseg_torch.models.remat import RematBlock
 
 # name -> stage widths, depths, group width, squeeze-excite
 _CONFIGS = {
@@ -42,7 +43,7 @@ class ConvNormAct(ConvBNAct):
     NAMES = ('conv', 'bn', 'act')
 
 
-class RegNetBlock(nn.Module):
+class RegNetBlock(RematBlock):
     """1x1, 3x3 grouped (``width // group_width`` groups), squeeze-excite on
     ``se_in // 4`` channels for the Y variants, 1x1 with no activation; a
     strided 1x1 downsample where the shapes differ; relu after the sum."""

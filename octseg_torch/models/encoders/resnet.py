@@ -15,23 +15,24 @@ from typing import List, Sequence
 import torch
 from torch import nn
 
-from octseg_torch.models.common import BatchNorm2d
+from octseg_torch.models.common import BatchNorm2d, Conv2d
+from octseg_torch.models.remat import RematBlock
 
 
-class BasicBlock(nn.Module):
+class BasicBlock(RematBlock):
     expansion = 1
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1):
         super().__init__()
-        self.conv1 = nn.Conv2d(inplanes, planes, 3, stride, 1, bias=False)
+        self.conv1 = Conv2d(inplanes, planes, 3, stride, 1, bias=False)
         self.bn1 = BatchNorm2d(planes)
         self.relu = nn.ReLU(inplace=True)
-        self.conv2 = nn.Conv2d(planes, planes, 3, 1, 1, bias=False)
+        self.conv2 = Conv2d(planes, planes, 3, 1, 1, bias=False)
         self.bn2 = BatchNorm2d(planes)
         self.downsample = None
         if stride != 1 or inplanes != planes:
             self.downsample = nn.Sequential(
-                nn.Conv2d(inplanes, planes, 1, stride, bias=False),
+                Conv2d(inplanes, planes, 1, stride, bias=False),
                 BatchNorm2d(planes))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -41,22 +42,22 @@ class BasicBlock(nn.Module):
         return self.relu(out + identity)
 
 
-class Bottleneck(nn.Module):
+class Bottleneck(RematBlock):
     expansion = 4
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1):
         super().__init__()
-        self.conv1 = nn.Conv2d(inplanes, planes, 1, bias=False)
+        self.conv1 = Conv2d(inplanes, planes, 1, bias=False)
         self.bn1 = BatchNorm2d(planes)
-        self.conv2 = nn.Conv2d(planes, planes, 3, stride, 1, bias=False)
+        self.conv2 = Conv2d(planes, planes, 3, stride, 1, bias=False)
         self.bn2 = BatchNorm2d(planes)
-        self.conv3 = nn.Conv2d(planes, planes * 4, 1, bias=False)
+        self.conv3 = Conv2d(planes, planes * 4, 1, bias=False)
         self.bn3 = BatchNorm2d(planes * 4)
         self.relu = nn.ReLU(inplace=True)
         self.downsample = None
         if stride != 1 or inplanes != planes * 4:
             self.downsample = nn.Sequential(
-                nn.Conv2d(inplanes, planes * 4, 1, stride, bias=False),
+                Conv2d(inplanes, planes * 4, 1, stride, bias=False),
                 BatchNorm2d(planes * 4))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -87,7 +88,7 @@ class ResNetEncoder(nn.Module):
     def __init__(self, variant: str = 'resnet50'):
         super().__init__()
         block, layers = RESNETS[variant]
-        self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
+        self.conv1 = Conv2d(3, 64, 7, 2, 3, bias=False)
         self.bn1 = BatchNorm2d(64)
         self.relu = nn.ReLU(inplace=True)
         self.maxpool = nn.MaxPool2d(3, 2, 1)

@@ -9,10 +9,12 @@ device until the epoch ends. Each epoch appends to ``metrics.csv`` and
 improves, ``resume.ckpt`` every ``resume_interval`` epochs, and the
 tri-panel examples of ``{data_dir}/vis`` to ``images_per_epoch/``.
 
-Not ported: the JAX package's device mesh and its native C++ loader
-(ROADMAP.md, "Opt-in, last"), ``bf16: true`` and ``remat: true``
-("Memory-driven block sizing, then bf16"); each raises NotImplementedError
-where a config asks for it.
+``bf16: true`` builds the model with bfloat16 compute (float32 parameters,
+optimizer state, BatchNorm statistics and loss; models/common.py) and
+``remat: true`` checkpoints its blocks (models/remat.py), as octseg's keys
+do. Not ported: the JAX package's device mesh and its native C++ loader
+(ROADMAP.md, "Opt-in, last"); ``native_loader: true`` raises
+NotImplementedError.
 
 Config: configs/train.yaml (the reference's keys).
 Usage: python -m octseg_torch.train.train data_dir=<fold> save_dir=<dir>
@@ -50,10 +52,6 @@ from octseg_torch.train.state import TrainState, make_optimizer
 
 log = logging.getLogger(__name__)
 
-_NOT_PORTED = {
-    'bf16': 'bf16 compute is ROADMAP.md, "Memory-driven block sizing, then bf16"',
-    'remat': 'activation rematerialization is ROADMAP.md, "Memory-driven block sizing, then bf16"',
-}
 # flax's lecun_normal: a normal truncated at 2 std, rescaled to unit variance
 _TRUNC_STD = 0.87962566103423978
 
@@ -182,9 +180,6 @@ def train_model(cfg: Config, model_dir: Optional[str] = None,
     device: None reads ``cfg.device`` (``auto``: the GPU, raising without
     one); ``'cpu'`` runs on the CPU."""
     device = octseg_torch.resolve_device(device if device is not None else cfg.get('device'))
-    for key, why in _NOT_PORTED.items():
-        if cfg.get(key, False):
-            raise NotImplementedError(f'{key}: true is not ported: {why}')
     if cfg.get('native_loader', 'auto') is True:
         raise NotImplementedError('native_loader: true is not ported: the native C++ loader '
                                   'is ROADMAP.md, "Opt-in, last"; use auto or false')
@@ -199,7 +194,9 @@ def train_model(cfg: Config, model_dir: Optional[str] = None,
     seed = int(cfg.get('seed', 11))
     log.info('Training on %s', device)
 
-    model = init_model(create_model(cfg.architecture, cfg.encoder, classes=len(classes)), seed)
+    dtype = torch.bfloat16 if cfg.get('bf16', False) else torch.float32
+    model = init_model(create_model(cfg.architecture, cfg.encoder, classes=len(classes),
+                                    dtype=dtype, remat=bool(cfg.get('remat', False))), seed)
     enc_weights = cfg.get('encoder_weights')
     if enc_weights and str(enc_weights).lower() not in ('none', 'null', ''):
         ckpt.load_pretrained_encoder(model, str(enc_weights))

@@ -231,10 +231,32 @@ def test_read_png_all_five_filters_and_speed(tmp_path):
     assert best < 0.5, best
 
 
+@pytest.mark.parametrize('kind', ['colour 4:2:0', 'gray', 'exif orientation 6',
+                                  'exif orientation 3'])
+def test_read_png_reads_a_jpeg_as_cv2_imread(tmp_path, kind):
+    """A JPEG in a folder that octseg reads with cv2.imread (IMREAD_COLOR):
+    BGR, gray replicated, the EXIF orientation applied."""
+    from PIL import Image
+
+    rng = np.random.default_rng(21)
+    img = np.clip(rng.normal(120, 40, (37, 50, 3)), 0, 255).astype(np.uint8)
+    path = str(tmp_path / 'x.jpg')
+    if kind.startswith('exif'):
+        exif = Image.Exif()
+        exif[0x0112] = int(kind[-1])
+        Image.fromarray(img).save(path, 'JPEG', exif=exif.tobytes())
+    else:
+        cv2.imwrite(path, img[..., 0] if kind == 'gray' else img)
+    want = cv2.imread(path)
+    got = read_png(path)
+    assert got.shape == want.shape and got.dtype == np.uint8
+    np.testing.assert_array_equal(got, want)
+
+
 def test_read_png_rejects_what_it_does_not_decode(tmp_path):
     path = str(tmp_path / 'x.jpg')
-    cv2.imwrite(path, np.zeros((4, 4, 3), np.uint8))
-    with pytest.raises(NotImplementedError, match='JPEG'):
+    cv2.imwrite(path, np.zeros((16, 16, 3), np.uint8), [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
+    with pytest.raises(NotImplementedError, match='progressive.*ROADMAP.md'):
         read_png(path)
     with open(path, 'wb') as f:
         f.write(_encode_png(np.zeros((2, 2, 3), np.int64), 4, 2))   # RGB has no 4-bit form

@@ -230,7 +230,7 @@ def test_chunk_is_decided_once_per_shape_and_raises_when_one_frame_does_not_fit(
     masks = engine.segment_pullback(frames, OUT)
     engine.segment_pullback(frames, OUT)
     assert calls == [(5, 70, 90, 3)]
-    plan = engine.chunk_plans[('LM', (5, 70, 90, 3), OUT)]
+    plan = engine.chunk_plans[('LM', 'pullback', (5, 70, 90, 3), OUT)]
     assert plan.chunk == 2 and plan.bytes_per_frame == 1 << 30
     # beside the chunk: two blocks of frames and two of LM's packed masks
     resident = 2 * (5 * 70 * 90 * 3 + 5 * OUT[0] * (OUT[1] // 8))

@@ -2,9 +2,9 @@
 
 The machine with the card has no jax, flax, optax, cv2, PIL, yaml or
 msgpack, and the port must not lean on the JAX package: a clean interpreter
-runs the port's CPU predict path on a tiny pullback and a CPU training
-epoch (augmentation on) on a tiny synthetic fold, and must not have loaded
-any of them; an AST scan checks every import statement of the package and
+runs the port's CPU predict path on a tiny pullback and on an image
+directory (a PNG and a JPEG, bf16), and a CPU training epoch (augmentation
+on) on a tiny synthetic fold, and must not have loaded any of them; an AST scan checks every import statement of the package and
 of chip_smoke.py.
 """
 
@@ -43,6 +43,15 @@ cfg = load_config('predict', [f'data_dir={dcm}', f'models_dir={tmp}/models',
                               f'save_dir={tmp}/out', 'output_size=[24,32]',
                               "classes=[Lumen,'Fibrous cap']", 'device=cpu', 'block_size=2'])
 result = main(cfg)
+# the image-directory path over a PNG and a JPEG (the C++ entropy decoder)
+import shutil
+from octseg_torch.data.image import write_png
+os.makedirs(f'{tmp}/images')
+write_png(f'{tmp}/images/a.png', np.random.default_rng(1).integers(0, 255, (30, 20, 3), np.uint8))
+shutil.copy(os.path.join(sys.argv[2], '444.jpg'), f'{tmp}/images/b.jpg')
+images = main(load_config('predict', [f'data_dir={tmp}/images', f'models_dir={tmp}/models',
+                                      f'save_dir={tmp}/out_images', 'output_size=[24,32]',
+                                      "classes=[Lumen,'Fibrous cap']", 'device=cpu', 'bf16=true']))
 make_synth_fold(f'{tmp}/fold', n_train=4, n_test=2, size=40, seed=1)
 summary = train(overrides=[f'data_dir={tmp}/fold', f'save_dir={tmp}/models', 'device=cpu',
                            'architecture=Unet', 'encoder=resnet18', 'input_size=32',
@@ -50,6 +59,8 @@ summary = train(overrides=[f'data_dir={tmp}/fold', f'save_dir={tmp}/models', 'de
 banned = %r
 loaded = sorted(m for m in sys.modules if m.split('.')[0] in banned)
 print(json.dumps({'frames': result['frames'], 'outputs': sorted(os.listdir(f'{tmp}/out')),
+                  'images': images['frames'],
+                  'image_outputs': sorted(os.listdir(f'{tmp}/out_images')),
                   'train_steps': summary['train_steps'],
                   'model_files': sorted(os.listdir(summary['model_dir'])),
                   'loaded': loaded}))
@@ -59,13 +70,17 @@ print(json.dumps({'frames': result['frames'], 'outputs': sorted(os.listdir(f'{tm
 def test_cpu_predict_path_loads_no_banned_module(tmp_path):
     env = {k: v for k, v in os.environ.items() if k not in ('PYTHONPATH',)}
     env['PYTHONPATH'] = REPO
-    proc = subprocess.run([sys.executable, '-c', SCRIPT, str(tmp_path)], cwd=str(tmp_path),
+    fixture = os.path.join(REPO, 'tests', 'torch_fixtures', 'jpeg')
+    proc = subprocess.run([sys.executable, '-c', SCRIPT, str(tmp_path), fixture],
+                          cwd=str(tmp_path),
                           env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     result = json.loads(proc.stdout.strip().splitlines()[-1])
     assert result['loaded'] == []
     assert result['frames'] == 3
     assert len(result['outputs']) == 6 and 'IMG007_3_overlay.png' in result['outputs']
+    assert result['images'] == 2 and result['image_outputs'] == [
+        'a_mask.png', 'a_overlay.png', 'b_mask.png', 'b_overlay.png']
     assert result['train_steps'] == 2
     assert {'metrics.csv', 'weights.ckpt', 'resume.ckpt', 'config.json'} <= set(
         result['model_files'])

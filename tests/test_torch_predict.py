@@ -91,13 +91,25 @@ def test_16bit_pullback_is_normalized_per_slice_as_jax(monkeypatch):
 
 
 def test_image_directory_is_the_next_slice(models_dir, tmp_path):
+    """The image-directory path, once the next slice, now runs: every image
+    of the directory gets its overlay and mask PNG at the output size
+    (tests/test_torch_predict_images.py holds them against octseg's)."""
+    from octseg_torch.data.image import write_png
+
+    rng = np.random.default_rng(4)
+    for name in ('a', 'b'):
+        write_png(str(tmp_path / f'{name}.png'), rng.integers(0, 255, (30, 40, 3), np.uint8))
     cfg = Config(data_dir=str(tmp_path), models_dir=models_dir, save_dir=str(tmp_path / 'o'),
                  output_size=OUT, classes=CLASSES, device='cpu')
-    with pytest.raises(NotImplementedError, match='ROADMAP.md, "The image-directory predict path"'):
-        predict.main(cfg)
+    result = predict.main(cfg)
+    assert result['frames'] == 2 and set(result['seconds']) >= {'decode', 'engine', 'render'}
+    assert sorted(os.listdir(tmp_path / 'o')) == ['a_mask.png', 'a_overlay.png', 'b_mask.png',
+                                                  'b_overlay.png']
+    for f in os.listdir(tmp_path / 'o'):
+        assert np.asarray(Image.open(tmp_path / 'o' / f)).shape == (*OUT, 3)
 
 
-@pytest.mark.parametrize('key', ['bf16', 'int8'])
+@pytest.mark.parametrize('key', ['int8'])
 def test_unported_precisions_raise_before_any_model_loads(models_dir, tmp_path, monkeypatch,
                                                           key):
     dcm = str(tmp_path / 'IMG001')
@@ -112,6 +124,33 @@ def test_unported_precisions_raise_before_any_model_loads(models_dir, tmp_path, 
     with pytest.raises(NotImplementedError, match=f'{key}: true is not ported.*ROADMAP.md'):
         predict.main(cfg)
     assert not os.path.exists(tmp_path / 'o')
+
+
+def test_bf16_predict_runs_the_models_in_bfloat16(models_dir, tmp_path, monkeypatch):
+    """``bf16=true`` (once a raising case of the test above) predicts with
+    bfloat16 convolutions: every model's convolutions see bfloat16 inputs,
+    its parameters stay float32, and the pullback's PNGs are written."""
+    dcm = str(tmp_path / 'IMG001')
+    jax_dicom.dcmwrite(dcm, np.random.default_rng(2).integers(0, 255, (3, 40, 40), np.uint8))
+    seen = set()
+    bundle = predict.InferenceEngine._bundle
+
+    def spying(self, name):
+        model, cfg = bundle(self, name)
+        if name not in seen:
+            seen.add(name)
+            assert all(p.dtype == torch.float32 for p in model.parameters())
+            model.encoder.conv1.register_forward_pre_hook(
+                lambda m, a: seen.add((name, a[0].dtype, m.compute_dtype)))
+        return model, cfg
+
+    monkeypatch.setattr(predict.InferenceEngine, '_bundle', spying)
+    cfg = Config(data_dir=dcm, models_dir=models_dir, save_dir=str(tmp_path / 'o'),
+                 output_size=OUT, classes=CLASSES, device='cpu', bf16=True)
+    result = predict.main(cfg)
+    assert result['frames'] == 3 and len(os.listdir(tmp_path / 'o')) == 6
+    assert {s for s in seen if isinstance(s, tuple)} == {
+        (name, torch.float32, torch.bfloat16) for name in ('LM', 'FC_LC', 'VV')}
 
 
 def test_render_mask_block_names_and_sizes(tmp_path):

@@ -95,8 +95,12 @@ def test_augmented_run_resumes(setup):
     want = [(str(e), s, c) for e in (1, 2) for s in ('train', 'test') for c in CLASSES + ['Mean']]
     assert order == want
     assert all(np.isfinite(float(r['Loss'])) for r in rows)
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        train_model(Config(dict(cfg, bf16=True)), device='cpu')
+    # bf16 compute with block remat: one epoch runs, with finite losses
+    summary = train_model(Config(dict(cfg, bf16=True, remat=True, resume=False, epochs=1,
+                                      model_name='bf16')), device='cpu')
+    assert summary['epochs_done'] == 1 and summary['train_steps'] == 2
+    _, rows = _rows(str(root / 'aug' / 'bf16'))
+    assert rows and all(np.isfinite(float(r['Loss'])) for r in rows)
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         train_model(Config(dict(cfg, native_loader=True)), device='cpu')
 
