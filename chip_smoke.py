@@ -6,7 +6,8 @@ Usage: python3 chip_smoke.py   (from the repository root; needs one CUDA card)
 Phases, each raising on failure (exit code != 0):
   1. card name and power limit (nvidia-smi), torch and CUDA versions;
   2. build the port's CUDA kernels with nvcc and the JPEG entropy decoder
-     (host C++) with g++, one process per source, all started together;
+     and the contour tracer (host C++) with g++, one process per source,
+     all started together;
   3. K1, the fused overlay postprocess kernel, against its plain torch
      version on the card (ring bit-exact, fill within 1e-5) at the predict
      path's shape (128, 1000, 1000), at 32 and 64 masks of 1000x1000, and
@@ -48,6 +49,17 @@ Phases, each raising on failure (exit code != 0):
      ensemble with softened heads in bf16 against fp32, per class the share
      of differing pixels where the fp32 probability is at least BF16_BAND
      from 0.5 within BF16_MASK_SHARE; the predict path with bf16=true;
+  5d. serve: configs/serve.yaml unchanged (bf16, block 128, four classes,
+     1000x1000) over the softened ensemble, the service in process on
+     127.0.0.1:0; the 32-frame pullback streamed in format=masks (cold and
+     warm: frames/s, first-block latency), its blocks equal to the server
+     engine's masks except within 1e-4 of p = 0.5; format=quant (seconds)
+     equal to ``quantify_blocks`` with the Python contour tracer over those
+     masks; the C++ and Python tracers equal on every channel that counts
+     (ms per 1000x1000 mask of each); the port's client in masks mode (K1
+     once per streamed block; render seconds) against a local bf16 predict,
+     PNGs byte-identical; 503 with Retry-After while the admission
+     semaphore is held; /healthz says gpu, /metrics counts the requests;
   6. ensemble routing with the three families at 64 px (UnetPlusPlus/
      resnet101, LinkNet/efficientnet-b7, Unet/timm-regnetx_064) over all
      four classes, GPU against CPU;
@@ -64,6 +76,13 @@ Phases, each raising on failure (exit code != 0):
      REMAT_GRAD_GAP, BatchNorm statistics within BN_STATS_ATOL); the memory
      peak of one bf16 step of LinkNet/efficientnet-b7 at 896, batch 4, with
      and without remat;
+  8c. evaluate: configs/evaluate.yaml's entry point on the training path's
+     model dir and its fold's test split on the card, and on the CPU:
+     metrics within EVAL_ATOL, (sample, class) masks equal where no
+     probability is within 1e-4 of 0.5; seconds;
+  8d. folds: the fold driver with configs/train.yaml over two synthetic
+     folds (8 train and 4 test frames at 1000 px), one epoch each:
+     folds_summary.csv and each fold dir's files, K2 once per step;
   9. Unet/resnet18 at 64 px, GPU (TF32 off) against CPU, from the same
      weights: the first step's gradients, three SGD steps and three Adam
      steps, with controls that must fail;
@@ -810,7 +829,8 @@ def train_path(tmp: str, bf16: bool = False):
               'samples_per_s': summary['train_samples'] / loop, 'seconds': secs,
               'data_wait_share': secs['data_wait'] / loop, 'wall_s': wall,
               'peak_allocated_bytes': peak, 'launches': launches,
-              'best_val_loss': summary['best_val_loss'], 'step': breakdown}
+              'best_val_loss': summary['best_val_loss'], 'step': breakdown,
+              'model_dir': model_dir, 'fold': fold}
     log(f'training path ({"bf16" if bf16 else "fp32"}): {record["model"]} at '
         f'{record["input_size"]}, batch '
         f'{record["batch_size"]}: {steps} steps, {record["samples_per_s"]:.2f} samples/s in '
@@ -1254,6 +1274,312 @@ def bf16_predict(tmp: str, main):
     return record
 
 
+def post_pullback(url: str, body: bytes, fmt: str):
+    """POST a pullback to the service: (NDJSON records or the quant payload,
+    seconds to the first block record (None for quant), seconds to the end)."""
+    import urllib.request
+
+    t = time.perf_counter()
+    req = urllib.request.Request(f'{url}/v1/pullback' + ('?format=quant' if fmt == 'quant'
+                                                         else ''), data=body, method='POST')
+    first = None
+    with urllib.request.urlopen(req, timeout=600) as resp:
+        if fmt == 'quant':
+            out = json.loads(resp.read())
+        else:
+            out = []
+            for line in resp:
+                out.append(json.loads(line))
+                if first is None and out[-1]['type'] == 'block':
+                    first = time.perf_counter() - t
+    return out, first, time.perf_counter() - t
+
+
+def serve_path(tmp: str, main, models: str):
+    """The inference service at full width: configs/serve.yaml unchanged
+    (bf16, block 128, four classes, 1000x1000) over the three winners
+    (softened heads, so that masks hold both values), in process on
+    127.0.0.1 with port 0. The 32-frame main-path pullback in
+    ``format=masks`` twice (cold: model loads and probes; warm), each block
+    decoded and held to the server engine's ``segment_pullback``
+    (differences only where the probability is within 1e-4 of 0.5, counted);
+    ``format=quant`` held to ``quantify_blocks`` over those masks with the
+    Python tracer, and the C++ and Python tracers equal on every channel
+    that counts (ms per mask of each); the port's client in masks mode (K1
+    once per streamed block) against a local ``predict.main`` with
+    bf16=true, PNGs byte-identical; a 503 with Retry-After while the
+    admission semaphore is held; /healthz and /metrics."""
+    import urllib.error
+    import urllib.request
+
+    import numpy as np
+
+    from octseg_torch.analyze.contours import find_external_contours
+    from octseg_torch.core.config import Config, load_config
+    from octseg_torch.core.registry import CLASS_IDS
+    from octseg_torch.infer import client
+    from octseg_torch.infer.engine import fp32_exact
+    from octseg_torch.infer.predict import load_pullback_frames
+    from octseg_torch.infer.serve import decode_block, quantify_blocks, serve
+    from octseg_torch.ops.kernels import postprocess as k1
+
+    if not os.path.isdir(models):
+        raise AssertionError(f'{models}: the softened ensemble is made by the bf16 phase')
+    cfg = load_config('serve', [f'models_dir={models}', 'port=0'])
+    if (cfg.bf16, cfg.block_size, cfg.output_size, len(cfg.classes)) != (True, 128,
+                                                                         [1000, 1000], 4):
+        raise AssertionError(f'configs/serve.yaml is not the one this phase measures: {cfg}')
+    out = tuple(cfg.output_size)
+    httpd = serve(cfg, block=False)
+    try:
+        state = httpd.octseg_state
+        url = 'http://%s:%d' % httpd.server_address[:2]
+        with open(main['dcm'], 'rb') as f:
+            body = f.read()
+        frames = load_pullback_frames(main['dcm'])
+        n = frames.shape[0]
+        record = {'frames': n, 'output_size': list(out), 'classes': list(cfg.classes)}
+        for label in ('cold', 'warm'):
+            lines, first, total = post_pullback(url, body, 'masks')
+            if [ln['type'] for ln in lines] != ['header', 'block', 'end']:
+                raise AssertionError(f'masks stream: {[ln["type"] for ln in lines]}')
+            record[f'{label}_first_block_s'] = first
+            record[f'{label}_frames_per_s'] = n / total
+            log(f'serve masks ({label}): {n} frames in {total:.3f} s ({n / total:.2f} frames/s), '
+                f'first block after {first:.3f} s')
+        header, block = lines[0], lines[1]
+        streamed = decode_block(block, block['count'], header['height'], header['width'])
+        with state.device(), fp32_exact():
+            want = state.engine.segment_pullback(frames, out)
+            near = np.zeros_like(want, bool)
+            for name, routes in state.engine._ensemble_plan().items():
+                p = probabilities(state.engine, name, frames, out)
+                for _cls, ch, mask_ch in routes:
+                    near[..., mask_ch] = np.abs(p[:, ch] - 0.5) < 1e-4
+        differ = streamed != want
+        record.update(differing_px=int(differ.sum()), near_half_px=int(near.sum()),
+                      mask_px=int(differ.size))
+        log(f'serve masks against the engine: {record["differing_px"]} differing px of '
+            f'{differ.size}, {record["near_half_px"]} within 1e-4 of p = 0.5')
+        if (differ & ~near).any():
+            raise AssertionError('served masks differ from the engine away from p = 0.5')
+
+        payload, _, quant_s = post_pullback(url, body, 'quant')
+        record['quant_s'] = quant_s
+        channels = [streamed[j, :, :, CLASS_IDS[c] - 1].astype(np.uint8) * 255
+                    for j in range(n) for c in cfg.classes]
+        counting = [ch for ch in channels if ch.any() and not ch.all()]
+        times = {'cpp': [], 'python': []}
+        for ch in counting:
+            got = {}
+            for label, native in (('cpp', True), ('python', False)):
+                t = time.perf_counter()
+                got[label] = find_external_contours(ch, native=native)
+                times[label].append(time.perf_counter() - t)
+            if len(got['cpp']) != len(got['python']) or not all(
+                    np.array_equal(a, b) for a, b in zip(got['cpp'], got['python'])):
+                raise AssertionError('the C++ and Python contour tracers differ')
+        if not counting:
+            raise AssertionError('no channel of the served masks holds both values')
+        record.update(counting_channels=len(counting), channels=len(channels),
+                      contour_ms_cpp=1e3 * float(np.mean(times['cpp'])),
+                      contour_ms_python=1e3 * float(np.mean(times['python'])))
+        python_payload = json.loads(json.dumps(quantify_blocks(
+            [(0, streamed)], n, cfg.classes, out, native=False)))
+        if payload != python_payload:
+            raise AssertionError('the quant payload differs from quantify_blocks with the '
+                                 'Python tracer over the streamed masks')
+        rows = {c: len(o['slice']) for c, o in payload['objects'].items()}
+        log(f'serve quant: {quant_s:.3f} s per {n} frames; rows per class {rows}; C++ and '
+            f'Python tracers equal on all {len(counting)} counting channels of {len(channels)}; '
+            f'{record["contour_ms_cpp"]:.3f} ms per 1000x1000 mask with the C++ tracer, '
+            f'{record["contour_ms_python"]:.3f} ms with the Python one')
+        record['quant_rows'] = rows
+
+        render_s = [0.0]
+        save_block = client.save_block
+
+        def timed(*args, **kwargs):
+            t = time.perf_counter()
+            save_block(*args, **kwargs)
+            render_s[0] += time.perf_counter() - t
+
+        client.save_block = timed
+        try:
+            k1.launches = 0
+            t = time.perf_counter()
+            done = client.run(Config(server_url=url, dcm_path=main['dcm'],
+                                     save_dir=os.path.join(tmp, 'client'), format='masks',
+                                     classes=list(cfg.classes)))
+            record['client_s'] = time.perf_counter() - t
+            record['k1_launches'] = k1.launches
+        finally:
+            client.save_block = save_block
+        record['client_render_s'] = render_s[0]
+        if done != n or record['k1_launches'] < 1:
+            raise AssertionError(f'client: {done} frames, {record["k1_launches"]} K1 launches')
+        local = run_predict([f'data_dir={main["dcm"]}', f'models_dir={models}', 'bf16=true'],
+                            os.path.join(tmp, 'serve_local'), n, 'serve: local bf16 predict')
+        names = sorted(os.listdir(os.path.join(tmp, 'client')))
+        if names != sorted(os.listdir(os.path.join(tmp, 'serve_local'))) or len(names) != 2 * n:
+            raise AssertionError('the client and the local predict wrote different files')
+        unequal = []
+        for name in names:
+            with open(os.path.join(tmp, 'client', name), 'rb') as a, \
+                    open(os.path.join(tmp, 'serve_local', name), 'rb') as b:
+                if a.read() != b.read():
+                    unequal.append(name)
+        if unequal:
+            raise AssertionError(f'client PNGs differ from the local predict: {unequal[:6]}')
+        record['local_predict_s'] = local['seconds']['total']
+        log(f'serve client (masks): {done} frames in {record["client_s"]:.3f} s, render '
+            f'{record["client_render_s"]:.3f} s, {record["k1_launches"]} K1 launch(es); all '
+            f'{len(names)} PNGs byte-identical to the local predict')
+
+        # one job on the device and max_queued waiting: every slot is taken
+        slots = 1 + int(cfg.max_queued)
+        if not all(state.admit() for _ in range(slots)):
+            raise AssertionError('the admission semaphore has fewer free slots than configured')
+        try:
+            post_pullback(url, body, 'masks')
+            raise AssertionError('a POST while the admission semaphore is held was served')
+        except urllib.error.HTTPError as e:
+            if e.code != 503 or e.headers['Retry-After'] != '10':
+                raise
+        finally:
+            for _ in range(slots):
+                state.release()
+        with urllib.request.urlopen(f'{url}/healthz', timeout=60) as r:
+            health = json.loads(r.read())
+        with urllib.request.urlopen(f'{url}/metrics', timeout=60) as r:
+            metrics = r.read().decode()
+        if health['platform'] != 'gpu' or health['models'] != ['FC_LC', 'LM', 'VV']:
+            raise AssertionError(f'/healthz: {health}')
+        for series in ('octseg_requests_total{endpoint="pullback",status="200"} 4',
+                       'octseg_requests_total{endpoint="pullback",status="503"} 1',
+                       f'octseg_frames_total {4 * n}', 'octseg_rejected_total 1'):
+            if series not in metrics.splitlines():
+                raise AssertionError(f'/metrics lacks {series!r}:\n{metrics}')
+        record['health'] = health
+        log(f'serve: 503 with Retry-After while held; /healthz {health}; /metrics counts 4 '
+            f'pullbacks and 1 rejection')
+        return record
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+
+
+# GPU against CPU evaluation of the training path's model (bound stated in
+# PERF.md before the first run): each metric of each class within EVAL_ATOL,
+# and each (sample, class) mask with no probability within 1e-4 of 0.5
+# equal on both devices
+EVAL_ATOL = 1e-3
+
+
+def evaluate_path(train):
+    """configs/evaluate.yaml's entry point on the training path's model dir
+    (Unet/resnet50 at 512, four classes) and its fold's test split on the
+    card, and ``evaluate_model`` on the CPU; the split's masks on both
+    devices, compared away from p = 0.5."""
+    import numpy as np
+    import torch
+
+    from octseg_torch.infer.engine import fp32_exact, load_model_bundle
+    from octseg_torch.ops.normalize import normalize_imagenet, sigmoid_threshold
+    from octseg_torch.train.data import OCTDataset
+    from octseg_torch.train.evaluate import evaluate_model
+    from octseg_torch.train.evaluate import main as evaluate
+
+    model_dir, fold = train['model_dir'], train['fold']
+    t = time.perf_counter()
+    gpu = evaluate(overrides=[f'model_dir={model_dir}', f'data_dir={fold}', 'device=cuda'])
+    gpu_s = time.perf_counter() - t
+    if not os.path.isfile(os.path.join(model_dir, 'eval_test.json')):
+        raise AssertionError('evaluate wrote no eval_test.json')
+    t = time.perf_counter()
+    cpu = evaluate_model(model_dir, fold, device='cpu')
+    cpu_s = time.perf_counter() - t
+    probs, masks = {}, {}
+    for device in ('cuda', 'cpu'):
+        model, cfg = load_model_bundle(model_dir, device)
+        data = OCTDataset(os.path.join(fold, 'test'), cfg['classes'], cfg['input_size'])
+        imgs = torch.from_numpy(np.stack([data.load(i)[0] for i in range(len(data))]))
+        with torch.inference_mode(), fp32_exact():
+            x = normalize_imagenet(imgs.to(device)).permute(0, 3, 1, 2).contiguous()
+            logits = model(x)
+            # evaluate's masks: the logits' sign
+            masks[device] = sigmoid_threshold(logits).cpu().numpy()
+            probs[device] = torch.sigmoid(logits).float().cpu().numpy()
+        del model
+    near = (np.abs(probs['cpu'] - 0.5) < 1e-4).any(axis=(2, 3))          # (N, C)
+    differ = (masks['cuda'] != masks['cpu']).any(axis=(2, 3))
+    gap = max(abs(gpu[c][k] - cpu[c][k]) for c in cpu for k in cpu[c])
+    record = {'model_dir_model': f'{cfg["architecture"]}/{cfg["encoder"]}',
+              'samples': len(data), 'classes': cfg['classes'], 'gpu': gpu, 'cpu': cpu,
+              'max_abs_metric_gap': gap, 'bound': EVAL_ATOL, 'gpu_s': gpu_s, 'cpu_s': cpu_s,
+              'masks_near_half': int(near.sum()), 'masks_differing': int(differ.sum()),
+              'max_abs_prob_delta': float(np.abs(probs['cuda'] - probs['cpu']).max())}
+    log(f'evaluate {record["model_dir_model"]} on {len(data)} test samples: {gpu_s:.2f} s on the '
+        f'card, {cpu_s:.2f} s on the CPU; largest metric gap {gap:.3g} (bound {EVAL_ATOL}); '
+        f'{record["masks_differing"]} (sample, class) masks differ, {record["masks_near_half"]} '
+        f'hold a probability within 1e-4 of 0.5; max |p_gpu - p_cpu| '
+        f'{record["max_abs_prob_delta"]:.3g}; Mean dice {gpu["Mean"]["dice"]:.4f}')
+    if (differ & ~near).any() or gap > EVAL_ATOL:
+        raise AssertionError(f'GPU and CPU evaluation disagree: {record}')
+    return record
+
+
+FOLDS_SPLITS = (8, 4)         # train, test frames of each synthetic fold
+
+
+def folds_path(tmp: str):
+    """``python -m octseg_torch.train.folds``'s main with configs/train.yaml
+    (Unet/resnet50 at 512, batch 4, four classes, augmentation on) over two
+    synthetic folds of 1000 px frames, one epoch each: folds_summary.csv's
+    header and two rows, each fold dir's weights.ckpt, metrics.csv and
+    config.json, K2 once per step."""
+    import csv
+
+    from octseg_torch.data.synth import make_synth_fold
+    from octseg_torch.ops.kernels import warp as k2
+    from octseg_torch.train.folds import SUMMARY_FIELDS
+    from octseg_torch.train.folds import main as train_folds
+
+    cv_dir = os.path.join(tmp, 'cv')
+    n_train, n_test = FOLDS_SPLITS
+    t = time.perf_counter()
+    for k in (1, 2):
+        make_synth_fold(os.path.join(cv_dir, f'fold_{k}'), n_train, n_test, size=TRAIN_FRAME_PX,
+                        seed=20 + k)
+    log(f'two synthetic folds ({n_train}/{n_test} at {TRAIN_FRAME_PX} px) written in '
+        f'{time.perf_counter() - t:.1f} s')
+    save_dir = os.path.join(tmp, 'folds')
+    k2.launches = 0
+    t = time.perf_counter()
+    results = train_folds(overrides=[f'cv_dir={cv_dir}', 'folds=[1,2]', f'save_dir={save_dir}',
+                                     'epochs=1'])
+    wall = time.perf_counter() - t
+    launches = k2.launches
+    run_dir = os.path.join(save_dir, 'unet_resnet50')
+    with open(os.path.join(run_dir, 'folds_summary.csv'), newline='') as f:
+        reader = csv.DictReader(f)
+        fields, rows = reader.fieldnames, list(reader)
+    if fields != SUMMARY_FIELDS or [r['fold'] for r in rows] != ['1', '2']:
+        raise AssertionError(f'folds_summary.csv: {fields}, {rows}')
+    for k in (1, 2):
+        for name in ('weights.ckpt', 'metrics.csv', 'config.json'):
+            if not os.path.isfile(os.path.join(run_dir, f'fold_{k}', name)):
+                raise AssertionError(f'fold_{k} has no {name}')
+    steps = sum(r['train_steps'] for r in results)
+    if steps != 2 * (n_train // 4) or launches != steps:
+        raise AssertionError(f'{steps} train steps, {launches} K2 launches')
+    record = {'folds': len(rows), 'wall_s': wall, 'train_steps': steps, 'k2_launches': launches,
+              'summary': rows}
+    log(f'folds: 2 folds of train.yaml\'s model, one epoch each, in {wall:.1f} s; '
+        f'{steps} steps, {launches} K2 launches; summary {rows}')
+    return record
+
+
 def main() -> int:
     import torch
 
@@ -1269,10 +1595,11 @@ def main() -> int:
 
     def build(names):
         # one compiler per source, all started together: nvcc for the CUDA
-        # kernels, g++ for the JPEG entropy decoder
-        with ThreadPoolExecutor(len(names) + 1) as pool:
+        # kernels, g++ for the JPEG entropy decoder and the contour tracer
+        with ThreadPoolExecutor(len(names) + 2) as pool:
             futures = [pool.submit(_build.load, name) for name in names]
-            futures.append(pool.submit(_build.load_host, 'jpeg_entropy'))
+            futures += [pool.submit(_build.load_host, name) for name in ('jpeg_entropy',
+                                                                         'contours')]
             for fut in futures:
                 fut.result()
 
@@ -1288,10 +1615,13 @@ def main() -> int:
         memory = phases.run('block memory', block_memory, main)
         memory_bf16 = phases.run('block memory bf16', block_memory, main, True)
         bf16 = phases.run('bf16 predict', bf16_predict, tmp, main)
+        served = phases.run('serve', serve_path, tmp, main, os.path.join(tmp, 'soft'))
         share = phases.run('routing GPU vs CPU', routing, tmp)
         logits = phases.run('logits GPU vs CPU', logits_gpu_vs_cpu, main)
         train = phases.run('training path', train_path, tmp)
         train_bf16 = phases.run('training path bf16', train_path, tmp, True)
+        evaluated = phases.run('evaluate', evaluate_path, train)
+        folds = phases.run('folds', folds_path, tmp)
         remat = phases.run('remat step', remat_step)
         b7_memory = phases.run('bf16 b7 step memory', b7_step_memory)
         step_gaps = phases.run('train step GPU vs CPU', train_step_gpu_vs_cpu)
@@ -1302,7 +1632,8 @@ def main() -> int:
         'route': 'cuda',
         'source': 'octseg_torch/csrc/postprocess.cu',
         'replaces': 'octseg/ops/pallas/postprocess.py:149',
-        'launches': main['launches'],
+        'launches': main['launches'] + served['k1_launches'],
+        'launches_by_path': {'predict': main['launches'], 'serve client': served['k1_launches']},
         'shape': k1['shape'],
         'max_abs_err': k1['max_abs_err'],
         'ring_exact': k1['ring_exact'],
@@ -1320,6 +1651,7 @@ def main() -> int:
         'source': 'octseg_torch/csrc/warp.cu',
         'replaces': 'octseg/ops/pallas/resample.py:116',
         'launches': train['launches']['k2'],
+        'launches_by_path': {'train': train['launches']['k2'], 'folds': folds['k2_launches']},
         'shape': k2['shape'],
         'max_abs_err': k2['max_abs_err'],
         'masks_exact': k2['masks_exact'],
@@ -1340,6 +1672,9 @@ def main() -> int:
                       'block_memory': memory,
                       'block_memory_bf16': memory_bf16,
                       'bf16_predict': bf16,
+                      'serve': served,
+                      'evaluate': evaluated,
+                      'folds': folds,
                       'routing_near_half_share': share,
                       'logits_gpu_vs_cpu': logits,
                       'training_path': train,

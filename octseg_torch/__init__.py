@@ -17,6 +17,12 @@ __version__ = '0.1.0'
 PROJECT_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+def project_path(path: str) -> str:
+    """``path``, or for a relative one the path under PROJECT_DIR, as the
+    entry points read the paths of their configs."""
+    return path if os.path.isabs(path) else os.path.join(PROJECT_DIR, path)
+
+
 def resolve_device(device=None) -> torch.device:
     """``None`` / ``'auto'`` / ``'cuda'`` -> the GPU, raising when there is
     none; ``'cpu'`` (what the tests pass) -> the CPU."""

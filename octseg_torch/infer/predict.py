@@ -38,10 +38,18 @@ from octseg_torch.infer.engine import InferenceEngine
 
 log = logging.getLogger(__name__)
 
-# keys that octseg's predict passes to its engine and the port does not run
+# keys that octseg's entry points pass to its engine and the port does not run
 _NOT_PORTED = {
     'int8': 'int8 weights are ROADMAP.md, "Opt-in, last"',
 }
+
+
+def check_ported(keys) -> None:
+    """Raise NotImplementedError for a key of _NOT_PORTED that ``keys`` (a
+    config or a dict) sets true."""
+    for key, why in _NOT_PORTED.items():
+        if keys.get(key, False):
+            raise NotImplementedError(f'{key}: true is not ported: {why}')
 
 
 def _is_dicom(path: str) -> bool:
@@ -132,20 +140,15 @@ def _predict_images(cfg: Config, data_dir: str, engine: InferenceEngine,
     return len(names), seconds
 
 
-def _abs(path: str) -> str:
-    return path if os.path.isabs(path) else os.path.join(octseg_torch.PROJECT_DIR, path)
-
-
 @entry_point('predict')
 def main(cfg: Config) -> Dict[str, object]:
     """Run the predict path for a DICOM pullback or an image directory;
     returns ``{'frames': n, 'seconds': {stage: s}, 'chunks': {model dir:
     frames per forward}}``."""
-    for key, why in _NOT_PORTED.items():
-        if cfg.get(key, False):
-            raise NotImplementedError(f'{key}: true is not ported: {why}')
-    data_dir, models_dir, save_dir = (_abs(cfg.data_dir), _abs(cfg.models_dir),
-                                      _abs(cfg.save_dir))
+    check_ported(cfg)
+    data_dir, models_dir, save_dir = (octseg_torch.project_path(cfg.data_dir),
+                                      octseg_torch.project_path(cfg.models_dir),
+                                      octseg_torch.project_path(cfg.save_dir))
     start = time.perf_counter()
     engine = InferenceEngine(
         models_dir=models_dir, classes=list(cfg.classes),
