@@ -17,11 +17,13 @@ Phases, each raising on failure (exit code != 0):
      with CUDA events beside the plain version and the card's bound;
   4. K2, the augmentation warp kernel, against its plain torch version
      (masks bit-exact, images within 1e-4 on 0..255) at the training
-     path's shape (4, 512, 512) with every geometric branch on, six 32 px
-     maps, a non-square frame, 1 + 1 and 3 + 1 channels and a width that
-     is not a multiple of 4; timed warm and with a cold L2 (its inputs fit
-     in the L2) beside the plain version, the bound and F.grid_sample (a
-     yardstick the port never calls);
+     path's shape (4, 512, 512) with every geometric branch on, the tune
+     and zoo train steps' shape (2, 896, 896) with 3 + 1 channels (the
+     kernel's general path), six 32 px maps, a non-square frame, 1 + 1 and
+     3 + 1 channels and a width that is not a multiple of 4; both path
+     shapes timed warm and with a cold L2 (their inputs fit in the L2)
+     beside the plain version, the bound and F.grid_sample (a yardstick the
+     port never calls);
   5. the predict path at full width: the reference's hybrid ensemble, three
      model dirs with random weights from seeds 0-2 (LM UnetPlusPlus/resnet101
      at 512, FC_LC LinkNet/efficientnet-b7 at 896, VV Unet/timm-regnetx_064
@@ -86,7 +88,24 @@ Phases, each raising on failure (exit code != 0):
   9. Unet/resnet18 at 64 px, GPU (TF32 off) against CPU, from the same
      weights: the first step's gradients, three SGD steps and three Adam
      steps, with controls that must fail;
- 10. one JSON line of kernels; last, the result line.
+ 10. the rest of the model zoo (ZOO: FPN/efficientnet-b7, PSPNet/resnet101,
+     PAN/timm-regnetx_064 at output stride 16, MAnet/timm-regnety_120,
+     DeepLabV3/resnet101 at 8, DeepLabV3Plus/efficientnet-b5 at 16): each
+     model's logits on 2 frames at 512, GPU (TF32 off) against CPU within
+     LOGITS_ATOL; the predict path with configs/predict.yaml unchanged over
+     ZOO_ENSEMBLE (LM DeepLabV3/resnet101 at 512, FC_LC DeepLabV3Plus/
+     efficientnet-b5 and VV PAN/timm-regnetx_064 at 896) on the 32-frame
+     pullback, K1 on 128 masks, and each model's probe-chosen chunk with
+     its predicted and measured peaks; one fp32 training step of each ZOO
+     model and of ZOO_HEAVIEST (DeepLabV3/efficientnet-b7) at tune.yaml's
+     896, batch 2, augmentation on (ms per step, memory peak; remat only
+     where plain runs out of memory), K2 once per step;
+ 11. tune: ``octseg_torch.tune.tune.main`` over configs/tune.yaml's space
+     unchanged, cut in depth (TUNE_SPLITS frames at 1000 px, TUNE_TRIALS
+     trials, TUNE_EPOCHS epochs, TUNE_N_RANDOM random trials so the rest
+     come from the GP-EI): every trial ``ok``, K2 once per step; then one
+     trial more, which alone runs (resume);
+ 12. one JSON line of kernels; last, the result line.
 
 Everything is written under a temporary directory that is removed at the
 end. Logs go to stderr; stdout carries the card line, the kernels line and
@@ -126,6 +145,27 @@ IMAGE_DIR_PNGS = 8            # RGB PNGs at MAIN_OUT beside 8 of the fixture's J
 # probability is at least BF16_BAND from 0.5 must stay within BF16_MASK_SHARE
 BF16_BAND = 0.05
 BF16_MASK_SHARE = 1e-3
+# the rest of the model zoo: one model per new architecture, over all three
+# encoder families and both dilations (PAN and DeepLabV3Plus at output
+# stride 16, DeepLabV3 at 8); the heaviest pair of configs/tune.yaml's space;
+# an ensemble of them through the predict path (model dir, classes,
+# architecture, encoder, input size)
+ZOO = (('FPN', 'efficientnet-b7'), ('PSPNet', 'resnet101'), ('PAN', 'timm-regnetx_064'),
+       ('MAnet', 'timm-regnety_120'), ('DeepLabV3', 'resnet101'),
+       ('DeepLabV3Plus', 'efficientnet-b5'))
+ZOO_HEAVIEST = ('DeepLabV3', 'efficientnet-b7')
+ZOO_ENSEMBLE = (('LM', ['Lumen'], 'DeepLabV3', 'resnet101', 512),
+                ('FC_LC', ['Lipid core', 'Fibrous cap'], 'DeepLabV3Plus', 'efficientnet-b5', 896),
+                ('VV', ['Vasa vasorum'], 'PAN', 'timm-regnetx_064', 896))
+ZOO_LOGITS_PX, ZOO_LOGITS_FRAMES = 512, 2
+# the largest |logit| the zoo's GPU-vs-CPU check compares at: random weights
+# put PAN's logits near 1e4, where float32 resolves 1e-3 alone
+ZOO_LOGIT_SCALE = 10.0
+# the tune phase's cuts of depth (configs/tune.yaml's space is unchanged):
+# a synthetic fold of train and test frames at TRAIN_FRAME_PX, trials,
+# epochs, HyperBand's first rung and random trials before GP-EI
+TUNE_SPLITS = (8, 4)
+TUNE_TRIALS, TUNE_EPOCHS, TUNE_MIN_ITER, TUNE_N_RANDOM = 4, 2, 1, 2
 # remat against plain, one fp32 step of Unet/resnet50 at 512 (bounds stated
 # in PERF.md before the first run): the worst parameter's relative L2
 # gradient gap; BatchNorm running statistics within BN_STATS_ATOL
@@ -316,7 +356,11 @@ def k2_cases(torch):
         m_pre, m_persp, _rect = augment.geometry(params, h, w)
         return matmul3(m_pre, m_persp).contiguous()
 
-    cases = {'train path (4, 512, 512)': (*batch(4, 512, 512), drawn_maps(4, 512, 512))}
+    cases = {'train path (4, 512, 512)': (*batch(4, 512, 512), drawn_maps(4, 512, 512)),
+             # the tune and zoo train steps: configs/tune.yaml's batch at its
+             # largest size, one class (the general path: 3 + 1 channels)
+             'tune path (2, 896, 896) 3+1': (*batch(2, 896, 896, 3, 1),
+                                             drawn_maps(2, 896, 896))}
     s = 32
     c = torch.full((1,), (s - 1) / 2.0, device='cuda')
     one = torch.ones(1, device='cuda')
@@ -368,6 +412,35 @@ def grid_sample_pair(torch, imgs, masks, mats):
     return run
 
 
+# the K2 cases timed beside their bounds: the train path's fast path (3 + 4
+# channels) and the tune path's general path (3 + 1)
+K2_TIMED = ('train path (4, 512, 512)', 'tune path (2, 896, 896) 3+1')
+
+
+def time_k2(torch, k2, imgs, masks, mats):
+    """K2 on one case, warm and with a cold L2, beside its plain version,
+    the grid_sample pair and its bound."""
+    from octseg_torch.ops.warp import sample_pair_plain
+
+    n, h, w, ci = imgs.shape
+    cm = masks.shape[3]
+    # the inputs of both timed cases (29 and 26 MB) fit in the 50 MB L2:
+    # timed warm and cold
+    ms = time_ms(torch, lambda: k2.warp_pair(imgs, masks, mats), hold=True)
+    ms_cold = time_ms(torch, lambda: k2.warp_pair(imgs, masks, mats), cold_l2=True, hold=True)
+    plain_ms = time_ms(torch, lambda: sample_pair_plain(imgs, masks, mats))
+    yardstick = grid_sample_pair(torch, imgs, masks, mats)
+    library_ms = time_ms(torch, yardstick, hold=True)
+    library_cold = time_ms(torch, yardstick, cold_l2=True, hold=True)
+    px = n * h * w
+    bytes_ms = (2 * 4 * (ci + cm) * px + 36 * n) / HBM_BYTES_PER_S * 1e3
+    ops_ms = K2_OPS_PER_PIXEL * px / FP32_FLOPS * 1e3
+    return {'shape': [n, h, w, ci, cm], 'ms': ms, 'ms_cold_l2': ms_cold,
+            'plain_ms': plain_ms, 'library_ms': library_ms,
+            'library_ms_cold_l2': library_cold, 'bound_ms': max(bytes_ms, ops_ms),
+            'bound_by': 'bytes' if bytes_ms >= ops_ms else 'operations'}
+
+
 def check_k2(torch):
     """Kernel vs plain version on the card; returns the timing record."""
     from octseg_torch.ops.kernels import warp as k2
@@ -387,27 +460,17 @@ def check_k2(torch):
             raise AssertionError(f'K2 disagrees with its plain version on {name}')
         max_abs_err = max(max_abs_err, err)
         masks_exact = masks_exact and exact
-        if name.startswith('train path'):
-            n, h, w, ci = imgs.shape
-            cm = masks.shape[3]
-            # its 29 MB of inputs fit in the 50 MB L2: timed warm and cold
-            ms = time_ms(torch, lambda: k2.warp_pair(imgs, masks, mats), hold=True)
-            ms_cold = time_ms(torch, lambda: k2.warp_pair(imgs, masks, mats), cold_l2=True,
-                              hold=True)
-            plain_ms = time_ms(torch, lambda: sample_pair_plain(imgs, masks, mats))
-            yardstick = grid_sample_pair(torch, imgs, masks, mats)
-            library_ms = time_ms(torch, yardstick, hold=True)
-            library_cold = time_ms(torch, yardstick, cold_l2=True, hold=True)
-            px = n * h * w
-            bytes_ms = (2 * 4 * (ci + cm) * px + 36 * n) / HBM_BYTES_PER_S * 1e3
-            ops_ms = K2_OPS_PER_PIXEL * px / FP32_FLOPS * 1e3
-            record = {'shape': [n, h, w, ci, cm], 'ms': ms, 'ms_cold_l2': ms_cold,
-                      'plain_ms': plain_ms, 'library_ms': library_ms,
-                      'library_ms_cold_l2': library_cold, 'bound_ms': max(bytes_ms, ops_ms),
-                      'bound_by': 'bytes' if bytes_ms >= ops_ms else 'operations'}
-            log(f'K2 {name}: kernel {ms:.4f} ms warm, {ms_cold:.4f} ms cold L2; plain '
-                f'{plain_ms:.4f} ms; grid_sample {library_ms:.4f} ms warm, {library_cold:.4f} '
-                f'ms cold L2; bound {record["bound_ms"]:.4f} ms ({record["bound_by"]})')
+        if name in K2_TIMED:
+            rec = time_k2(torch, k2, imgs, masks, mats)
+            log(f'K2 {name}: kernel {rec["ms"]:.4f} ms warm, {rec["ms_cold_l2"]:.4f} ms cold '
+                f'L2; plain {rec["plain_ms"]:.4f} ms; grid_sample {rec["library_ms"]:.4f} ms '
+                f'warm, {rec["library_ms_cold_l2"]:.4f} ms cold L2; bound '
+                f'{rec["bound_ms"]:.4f} ms ({rec["bound_by"]})')
+            if name.startswith('train path'):
+                record.update(rec)
+            else:
+                tag = 'x'.join(map(str, rec['shape'][:3])) + 'x{}x{}'.format(*rec['shape'][3:])
+                record.update({f'{k}_{tag}': v for k, v in rec.items()})
     record.update(max_abs_err=max_abs_err, masks_exact=masks_exact)
     return record
 
@@ -437,15 +500,55 @@ def png_size(path: str):
     return int.from_bytes(head[16:20], 'big'), int.from_bytes(head[20:24], 'big')
 
 
-def make_ensemble(models: str, size_of=None) -> str:
-    """The ENSEMBLE's three model dirs under ``models`` (random weights,
-    seeds 0-2), each at its input size or at ``size_of(name)``."""
+def make_ensemble(models: str, size_of=None, ensemble=ENSEMBLE) -> str:
+    """The three model dirs of ``ensemble`` under ``models`` (random
+    weights, seeds 0-2), each at its input size or at ``size_of(name)``."""
     from octseg_torch.train.checkpoint import initialize_model_dir
 
-    for seed, (name, classes, arch, encoder, size) in enumerate(ENSEMBLE):
+    for seed, (name, classes, arch, encoder, size) in enumerate(ensemble):
         initialize_model_dir(os.path.join(models, name), classes, arch=arch, encoder=encoder,
                              input_size=size_of(name) if size_of else size, seed=seed)
     return models
+
+
+def predict_recorded(overrides, classes, out: str):
+    """``octseg_torch.infer.predict.main(overrides=...)`` with the render's
+    postprocess calls recorded: (result, K1 launches, the postprocess
+    shapes, each class's positive pixels (masks stacked frame by frame,
+    classes inner)). Checks that every overlay and mask PNG was written at
+    MAIN_OUT and that K1 launched once on all MAIN_FRAMES x classes masks."""
+    import torch
+
+    from octseg_torch.data import utils as data_utils
+    from octseg_torch.infer.predict import main as predict
+    from octseg_torch.ops.kernels import postprocess as k1
+
+    shapes, positive = [], torch.zeros(len(classes), dtype=torch.float64)
+    postprocess_masks = data_utils.postprocess_masks
+
+    def recorded(m):
+        shapes.append(tuple(m.shape))
+        positive.add_(m.view(-1, len(classes), *m.shape[1:]).double().sum((0, 2, 3)).cpu())
+        return postprocess_masks(m)
+
+    data_utils.postprocess_masks = recorded
+    try:
+        k1.launches = 0
+        result = predict(overrides=overrides)
+        launches = k1.launches
+    finally:
+        data_utils.postprocess_masks = postprocess_masks
+    pngs = sorted(f for f in os.listdir(out) if f.endswith('.png'))
+    if len(pngs) != 2 * MAIN_FRAMES:
+        raise AssertionError(f'expected {2 * MAIN_FRAMES} PNGs, found {len(pngs)}')
+    for f in pngs:
+        if png_size(os.path.join(out, f)) != (MAIN_OUT, MAIN_OUT):
+            raise AssertionError(f'{f} is not {MAIN_OUT}x{MAIN_OUT}')
+    want_shapes = [(len(classes) * MAIN_FRAMES, MAIN_OUT, MAIN_OUT)]
+    if launches < 1 or shapes != want_shapes:
+        raise AssertionError(f'the postprocess ran on {shapes} with {launches} K1 launches, '
+                             f'expected {want_shapes} launched')
+    return result, launches, shapes, positive
 
 
 def main_path(tmp: str):
@@ -453,9 +556,6 @@ def main_path(tmp: str):
 
     from octseg_torch.core.config import load_config
     from octseg_torch.data import dicom
-    from octseg_torch.data import utils as data_utils
-    from octseg_torch.infer.predict import main as predict
-    from octseg_torch.ops.kernels import postprocess as k1
     from octseg_torch.ops.kernels import warp as k2
 
     classes = list(load_config('predict').classes)
@@ -469,35 +569,11 @@ def main_path(tmp: str):
     # come from configs/predict.yaml
     overrides = [f'data_dir={dcm}', f'models_dir={models}', f'save_dir={out}',
                  f'output_size=[{MAIN_OUT},{MAIN_OUT}]', 'device=cuda']
-    # the render's postprocess calls, to read their shapes and each class's
-    # share of positive pixels (masks stacked frame by frame, classes inner)
-    shapes, positive = [], torch.zeros(len(classes), dtype=torch.float64)
-    postprocess_masks = data_utils.postprocess_masks
-
-    def recorded(m):
-        shapes.append(tuple(m.shape))
-        positive.add_(m.view(-1, len(classes), *m.shape[1:]).double().sum((0, 2, 3)).cpu())
-        return postprocess_masks(m)
-
-    data_utils.postprocess_masks = recorded
-    try:
-        torch.cuda.reset_peak_memory_stats()
-        k1.launches = k2.launches = 0
-        result = predict(overrides=overrides)
-        launches, k2_launches = k1.launches, k2.launches
-        peak = torch.cuda.max_memory_allocated()
-    finally:
-        data_utils.postprocess_masks = postprocess_masks
-    pngs = sorted(f for f in os.listdir(out) if f.endswith('.png'))
-    if len(pngs) != 2 * MAIN_FRAMES:
-        raise AssertionError(f'expected {2 * MAIN_FRAMES} PNGs, found {len(pngs)}')
-    for f in pngs:
-        if png_size(os.path.join(out, f)) != (MAIN_OUT, MAIN_OUT):
-            raise AssertionError(f'{f} is not {MAIN_OUT}x{MAIN_OUT}')
-    want_shapes = [(len(classes) * MAIN_FRAMES, MAIN_OUT, MAIN_OUT)]
-    if launches < 1 or shapes != want_shapes:
-        raise AssertionError(f'the postprocess ran on {shapes} with {launches} K1 launches, '
-                             f'expected {want_shapes} launched')
+    torch.cuda.reset_peak_memory_stats()
+    k2.launches = 0
+    result, launches, shapes, positive = predict_recorded(overrides, classes, out)
+    k2_launches = k2.launches
+    peak = torch.cuda.max_memory_allocated()
     # random weights: a class may be empty, so the shares are a record
     shares = dict(zip(classes, (positive / (MAIN_FRAMES * MAIN_OUT * MAIN_OUT)).tolist()))
     secs = result['seconds']
@@ -1580,6 +1656,265 @@ def folds_path(tmp: str):
     return record
 
 
+def zoo_logits_gpu_vs_cpu(main):
+    """Each ZOO model (random weights from seed k, flax's initialization)
+    on the pullback's first ZOO_LOGITS_FRAMES frames at ZOO_LOGITS_PX, GPU
+    (TF32 off) against CPU, within LOGITS_ATOL. Random weights give logits
+    up to 1e4 (PAN), so after the CPU pass the head's kernel and bias are
+    scaled by c = ZOO_LOGIT_SCALE / max |logit| (when below 1) and the GPU's
+    logits are held against c times the CPU's: the head and the upsampling
+    are linear, so that is the model's error at a logit scale of 10."""
+    import numpy as np
+    import torch
+
+    from octseg_torch.data import dicom
+    from octseg_torch.infer.engine import fp32_exact
+    from octseg_torch.models import create_model
+    from octseg_torch.ops.normalize import normalize_imagenet
+    from octseg_torch.ops.resize import resize_bilinear_nchw
+    from octseg_torch.train.train import init_model
+
+    frames = torch.from_numpy(np.array(
+        dicom.dcmread(main['dcm']).pixel_array[:ZOO_LOGITS_FRAMES])).float()
+    x = resize_bilinear_nchw(frames[:, None], (ZOO_LOGITS_PX, ZOO_LOGITS_PX))
+    x = normalize_imagenet(x.expand(-1, 3, -1, -1), channel_dim=1).contiguous()
+    record = {}
+    for seed, (arch, encoder) in enumerate(ZOO):
+        model = init_model(create_model(arch, encoder, classes=1), seed).eval()
+        t = time.perf_counter()
+        with torch.inference_mode():
+            cpu = model(x)
+        cpu_s = time.perf_counter() - t
+        raw_scale = float(cpu.abs().max())
+        c = min(1.0, ZOO_LOGIT_SCALE / raw_scale)
+        with torch.no_grad():
+            for p in model.segmentation_head.parameters():
+                p.mul_(c)
+        model.to('cuda')
+        with torch.inference_mode(), fp32_exact():
+            gpu = model(x.to('cuda')).cpu()
+        del model
+        torch.cuda.empty_cache()
+        err = float((gpu - c * cpu).abs().max())
+        log(f'zoo {arch}/{encoder} logits {tuple(cpu.shape)} GPU vs CPU: max |delta| {err:.3g} '
+            f'at a head scaled by {c:.3g} (max |logit| {raw_scale:.3g} unscaled), bound '
+            f'{LOGITS_ATOL}; CPU forward {cpu_s:.1f} s')
+        if not (err <= LOGITS_ATOL and torch.isfinite(gpu).all()):
+            raise AssertionError(f'{arch}/{encoder}: GPU and CPU logits differ by {err}')
+        record[f'{arch}/{encoder}'] = {'max_abs_delta': err, 'head_scale': c,
+                                       'max_abs_logit_unscaled': raw_scale}
+    return record
+
+
+def zoo_train_steps():
+    """One fp32 training step of each ZOO model and of ZOO_HEAVIEST at
+    configs/tune.yaml's largest input size and batch, augmentation on, Adam,
+    after one step that allocates the optimizer state: ms per step and the
+    device memory peak. A model that runs out of memory runs again with
+    remat, recorded as such. K2 must launch once per step."""
+    import gc
+    import math
+
+    import torch
+
+    from octseg_torch.core.config import load_config
+    from octseg_torch.models import create_model
+    from octseg_torch.ops.kernels import warp as k2
+    from octseg_torch.train.state import TrainState, make_optimizer
+    from octseg_torch.train.train import init_model, make_train_step
+
+    cfg = load_config('tune')
+    size, batch, classes = int(cfg.input_size_max), int(cfg.batch_size), len(cfg.classes)
+    gen = torch.Generator(device='cuda').manual_seed(3)
+    imgs = torch.rand((batch, size, size, 3), device='cuda', generator=gen) * 255.0
+    masks = (torch.rand((batch, size, size, classes), device='cuda', generator=gen) > 0.6
+             ).float()
+    step = make_train_step(use_augmentation=True)
+    records, steps = {}, 0
+    k2.launches = 0
+    for arch, encoder in ZOO + (ZOO_HEAVIEST,):
+        name = f'{arch}/{encoder}'
+        for remat in (False, True):
+            gc.collect()
+            torch.cuda.empty_cache()
+            model = init_model(create_model(arch, encoder, classes=classes, remat=remat),
+                               0).to('cuda')
+            state = TrainState.create(model, make_optimizer('Adam', 1e-4))
+            try:
+                steps += 1
+                step(state, imgs, masks, gen)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t = time.perf_counter()
+                steps += 1
+                loss = float(step(state, imgs, masks, gen)['loss'])
+                rec = {'remat': remat, 'ms_per_step': (time.perf_counter() - t) * 1e3,
+                       'peak_allocated_bytes': torch.cuda.max_memory_allocated(),
+                       'loss': loss}
+            except torch.OutOfMemoryError:
+                if remat:
+                    raise
+                records[name + ' plain'] = {'out_of_memory': True}
+                log(f'zoo step {name} at {size}, batch {batch}: out of memory without remat')
+                continue
+            finally:
+                del state, model
+            if not math.isfinite(loss):
+                raise AssertionError(f'{name}: loss {loss}')
+            records[name] = rec
+            log(f'zoo step {name} at {size}, batch {batch}, fp32{" remat" if remat else ""}: '
+                f'{rec["ms_per_step"]:.1f} ms, device memory peak '
+                f'{rec["peak_allocated_bytes"] / 2**30:.2f} GiB, loss {loss:.4f}')
+            break
+    launches = k2.launches
+    if launches != steps:
+        raise AssertionError(f'{steps} zoo steps, {launches} K2 launches')
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {'input_size': size, 'batch_size': batch, 'steps': steps, 'k2_launches': launches,
+            'models': records}
+
+
+def zoo_predict(tmp: str, main):
+    """The predict path with configs/predict.yaml unchanged over ZOO_ENSEMBLE
+    (random weights, seeds 0-2) on the main path's 32-frame pullback: every
+    overlay and mask PNG at MAIN_OUT, K1 on frames x classes masks. Then each
+    model alone over the pullback in one block: the chunk its memory probe
+    chose, the predicted and the measured device memory peaks."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from octseg_torch.core.config import load_config
+    from octseg_torch.infer.engine import InferenceEngine
+    from octseg_torch.infer.predict import load_pullback_frames
+
+    cfg = load_config('predict')
+    classes = list(cfg.classes)
+    models = make_ensemble(os.path.join(tmp, 'zoo_models'), ensemble=ZOO_ENSEMBLE)
+    out = os.path.join(tmp, 'zoo_predict')
+    overrides = [f'data_dir={main["dcm"]}', f'models_dir={models}', f'save_dir={out}',
+                 f'output_size=[{MAIN_OUT},{MAIN_OUT}]', 'device=cuda']
+    result, launches, shapes, _positive = predict_recorded(overrides, classes, out)
+    secs = result['seconds']
+    log(f'zoo predict: {result["frames"]} frames through '
+        f'{[f"{n} {a}/{e}" for n, _c, a, e, _s in ZOO_ENSEMBLE]}, {launches} K1 launch(es) on '
+        f'{shapes}, {result["frames"] / secs["total"]:.2f} frames/s end to end; seconds per '
+        f'stage {json.dumps({k: round(v, 3) for k, v in secs.items()})}; chunks '
+        f'{result["chunks"]}')
+    frames = load_pullback_frames(main['dcm'])
+    plans = {}
+    for name, model_classes, arch, encoder, size in ZOO_ENSEMBLE:
+        engine = InferenceEngine(models, model_classes, block_size=int(cfg.block_size),
+                                 output_resize=str(cfg.get('output_resize', 'prob_bilinear')),
+                                 device='cuda')
+        list(engine.iter_pullback(frames, (MAIN_OUT, MAIN_OUT)))     # probe, plan
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        list(engine.iter_pullback(frames, (MAIN_OUT, MAIN_OUT)))
+        rec = dict(next(iter(engine.chunk_plans.values()))._asdict(),
+                   seconds=time.perf_counter() - t,
+                   peak_allocated_bytes=torch.cuda.max_memory_allocated())
+        if rec['bytes_per_frame'] is None:
+            raise AssertionError(f'{name}: the engine chose its chunk without a probe')
+        plans[name] = dict(rec, model=f'{arch}/{encoder}', input_size=size)
+        log(f'zoo predict, {name} {arch}/{encoder} at {size} alone, {len(frames)} frames: '
+            f'chunk {rec["chunk"]}, {rec["bytes_per_frame"] / 2**20:.1f} MiB per frame fitted; '
+            f'peak allocated predicted {rec["predicted_peak_bytes"] / 2**30:.2f} GiB, measured '
+            f'{rec["peak_allocated_bytes"] / 2**30:.2f} GiB; {rec["seconds"]:.2f} s')
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    return {'launches': launches, 'k1_shapes': shapes, 'frames': result['frames'],
+            'seconds': secs, 'chunks': result['chunks'], 'models': plans,
+            'frames_per_s': float(np.float64(result['frames']) / secs['total'])}
+
+
+def tune_path(tmp: str):
+    """``octseg_torch.tune.tune.main`` with configs/tune.yaml's search space
+    unchanged (nine architectures, nine encoders, three optimizers, four
+    learning rates, 512-896 px, batch 2), cut in depth: a synthetic fold of
+    TUNE_SPLITS frames at TRAIN_FRAME_PX, TUNE_TRIALS trials of TUNE_EPOCHS
+    epochs, HyperBand's first rung at TUNE_MIN_ITER, TUNE_N_RANDOM random
+    trials before GP-EI. Every trial must end ``ok`` (a failed one's
+    traceback is printed); K2 must launch once per step. Then the sweep
+    again with one trial more: only that trial runs (resume)."""
+    import csv
+    import logging
+
+    from octseg_torch.core.config import load_config
+    from octseg_torch.data.synth import make_synth_fold
+    from octseg_torch.ops.kernels import warp as k2
+    from octseg_torch.tune.tune import RESULT_FIELDS
+    from octseg_torch.tune.tune import main as tune
+
+    fold = os.path.join(tmp, 'tune_fold')
+    n_train, n_test = TUNE_SPLITS
+    make_synth_fold(fold, n_train, n_test, size=TRAIN_FRAME_PX, seed=31)
+    save_dir = os.path.join(tmp, 'tuning')
+    batch = int(load_config('tune').batch_size)
+
+    class Errors(logging.Handler):
+        def __init__(self):
+            super().__init__(logging.ERROR)
+            self.messages = []
+
+        def emit(self, record):
+            self.messages.append(record.getMessage())
+
+    errors = Errors()
+    logging.getLogger('octseg_torch.tune.tune').addHandler(errors)
+
+    def sweep(trials):
+        k2.launches = 0
+        t = time.perf_counter()
+        best = tune(overrides=[f'data_dir={fold}', f'save_dir={save_dir}',
+                               f'num_trials={trials}', f'epochs={TUNE_EPOCHS}',
+                               f'hyperband_min_iter={TUNE_MIN_ITER}',
+                               f'n_random={TUNE_N_RANDOM}'])
+        wall = time.perf_counter() - t
+        with open(os.path.join(save_dir, 'tuning_results.csv'), newline='') as f:
+            reader = csv.DictReader(f)
+            fields, rows = reader.fieldnames, list(reader)
+        for message in errors.messages:
+            log(message)
+        if fields != RESULT_FIELDS or any(r['status'] != 'ok' for r in rows):
+            raise AssertionError(f'tuning_results.csv: {fields}, {rows}')
+        return best, rows, wall, k2.launches
+
+    try:
+        best, rows, wall, launches = sweep(TUNE_TRIALS)
+        steps = sum(int(r['epochs_done']) for r in rows) * (n_train // batch)
+        if [r['trial'] for r in rows] != [str(i) for i in range(TUNE_TRIALS)] \
+                or launches != steps:
+            raise AssertionError(f'{[r["trial"] for r in rows]}, {steps} steps, '
+                                 f'{launches} K2 launches')
+        _best, resumed, resume_wall, resume_launches = sweep(TUNE_TRIALS + 1)
+        new = resumed[TUNE_TRIALS:]
+        resume_steps = sum(int(r['epochs_done']) for r in new) * (n_train // batch)
+        if resumed[:TUNE_TRIALS] != rows or [r['trial'] for r in new] != [str(TUNE_TRIALS)] \
+                or resume_launches != resume_steps:
+            raise AssertionError(f'resume ran {[r["trial"] for r in new]}, {resume_steps} '
+                                 f'steps, {resume_launches} K2 launches')
+    finally:
+        logging.getLogger('octseg_torch.tune.tune').removeHandler(errors)
+    trials = [{k: r[k] for k in ('trial', 'architecture', 'encoder', 'optimizer', 'lr',
+                                 'input_size', 'val_f1', 'epochs_done', 'duration_s', 'status')}
+              for r in resumed]
+    for r in trials:
+        log(f'tune trial {r["trial"]}: {r["architecture"]}/{r["encoder"]} {r["optimizer"]} '
+            f'lr {r["lr"]} at {r["input_size"]}: val f1 {float(r["val_f1"]):.4f}, '
+            f'{r["epochs_done"]} epoch(s), {r["duration_s"]} s, {r["status"]}')
+    log(f'tune: {TUNE_TRIALS} trials in {wall:.1f} s ({steps} steps, {launches} K2 launches); '
+        f'resume ran trial {TUNE_TRIALS} alone in {resume_wall:.1f} s ({resume_steps} steps, '
+        f'{resume_launches} K2 launches); best {best}')
+    return {'trials': trials, 'wall_s': wall, 'steps': steps, 'k2_launches': launches,
+            'resume_wall_s': resume_wall, 'resume_steps': resume_steps,
+            'resume_k2_launches': resume_launches, 'best': best}
+
+
 def main() -> int:
     import torch
 
@@ -1625,6 +1960,10 @@ def main() -> int:
         remat = phases.run('remat step', remat_step)
         b7_memory = phases.run('bf16 b7 step memory', b7_step_memory)
         step_gaps = phases.run('train step GPU vs CPU', train_step_gpu_vs_cpu)
+        zoo_logits = phases.run('zoo logits GPU vs CPU', zoo_logits_gpu_vs_cpu, main)
+        zoo = phases.run('zoo predict', zoo_predict, tmp, main)
+        zoo_steps = phases.run('zoo train steps', zoo_train_steps)
+        tuned = phases.run('tune', tune_path, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     kernels = [{
@@ -1632,8 +1971,9 @@ def main() -> int:
         'route': 'cuda',
         'source': 'octseg_torch/csrc/postprocess.cu',
         'replaces': 'octseg/ops/pallas/postprocess.py:149',
-        'launches': main['launches'] + served['k1_launches'],
-        'launches_by_path': {'predict': main['launches'], 'serve client': served['k1_launches']},
+        'launches': main['launches'] + served['k1_launches'] + zoo['launches'],
+        'launches_by_path': {'predict': main['launches'], 'serve client': served['k1_launches'],
+                             'zoo predict': zoo['launches']},
         'shape': k1['shape'],
         'max_abs_err': k1['max_abs_err'],
         'ring_exact': k1['ring_exact'],
@@ -1650,8 +1990,11 @@ def main() -> int:
         'route': 'cuda',
         'source': 'octseg_torch/csrc/warp.cu',
         'replaces': 'octseg/ops/pallas/resample.py:116',
-        'launches': train['launches']['k2'],
-        'launches_by_path': {'train': train['launches']['k2'], 'folds': folds['k2_launches']},
+        'launches': (train['launches']['k2'] + folds['k2_launches'] + zoo_steps['k2_launches']
+                     + tuned['k2_launches'] + tuned['resume_k2_launches']),
+        'launches_by_path': {'train': train['launches']['k2'], 'folds': folds['k2_launches'],
+                             'zoo train steps': zoo_steps['k2_launches'],
+                             'tune': tuned['k2_launches'] + tuned['resume_k2_launches']},
         'shape': k2['shape'],
         'max_abs_err': k2['max_abs_err'],
         'masks_exact': k2['masks_exact'],
@@ -1661,6 +2004,8 @@ def main() -> int:
         'bound_ms': k2['bound_ms'], 'bound_by': k2['bound_by'],
         'library_ms': k2['library_ms'],
         'library_ms_cold_l2': k2['library_ms_cold_l2'],
+        # the tune and zoo train steps' shape, which takes the general path
+        **{k: v for k, v in k2.items() if k.endswith('_2x896x896x3x1')},
     }]
     print(json.dumps({'kernels': kernels,
                       'predict_path': {k: main[k] for k in (
@@ -1681,7 +2026,13 @@ def main() -> int:
                       'training_path_bf16': train_bf16,
                       'remat_step': remat,
                       'bf16_b7_step_memory': b7_memory,
-                      'train_step_gpu_vs_cpu': step_gaps}), flush=True)
+                      'train_step_gpu_vs_cpu': step_gaps,
+                      'zoo_logits_gpu_vs_cpu': zoo_logits,
+                      'zoo_predict': {k: zoo[k] for k in ('frames', 'seconds', 'chunks',
+                                                          'k1_shapes', 'frames_per_s',
+                                                          'models')},
+                      'zoo_train_steps': zoo_steps,
+                      'tune': tuned}), flush=True)
     log(f'total {time.perf_counter() - phases.t0:.1f} s')
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

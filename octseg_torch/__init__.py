@@ -7,6 +7,7 @@ library only. Entry points run on ``cuda`` unless the caller passes
 """
 
 import os
+from typing import List
 
 import torch
 
@@ -34,3 +35,13 @@ def resolve_device(device=None) -> torch.device:
             'octseg_torch runs on a CUDA device and none is available; '
             "pass device='cpu' to run on the CPU")
     return device
+
+
+def device_pool(device=None) -> List[torch.device]:
+    """The devices independent jobs (folds, tuning trials) may take, one
+    each: every CUDA device for ``None``, ``'auto'`` or ``'cuda'``, else the
+    one device named (``resolve_device``'s rules)."""
+    device = resolve_device(device)
+    if device.type == 'cuda' and device.index is None:
+        return [torch.device('cuda', i) for i in range(torch.cuda.device_count())]
+    return [device]

@@ -1,10 +1,10 @@
 """Model registry: ``create_model(arch, encoder, classes, dtype, remat)``.
 
-Ported so far: the Unet, UnetPlusPlus and LinkNet decoders over every
-resnet, efficientnet and timm-regnet encoder at output stride 32. The other
-six decoders of octseg raise NotImplementedError naming the ROADMAP item
-that adds them; an architecture octseg does not know raises ValueError, as
-octseg's ``normalize_arch`` does.
+All nine decoders of octseg (Unet, UnetPlusPlus, LinkNet, FPN, PSPNet,
+PAN, MAnet, DeepLabV3, DeepLabV3Plus) over every resnet, efficientnet and
+timm-regnet encoder, each at the encoder output stride its architecture
+needs; an architecture octseg does not know raises ValueError, as octseg's
+``normalize_arch`` does.
 """
 
 from __future__ import annotations
@@ -13,17 +13,30 @@ import torch
 
 from octseg_torch.models.base import SegmentationModel
 from octseg_torch.models.common import set_compute_dtype
+from octseg_torch.models.decoders.deeplab import DeepLabV3Decoder, DeepLabV3PlusDecoder
+from octseg_torch.models.decoders.fpn import FPNDecoder
 from octseg_torch.models.decoders.linknet import LinkNetDecoder
+from octseg_torch.models.decoders.manet import MAnetDecoder
+from octseg_torch.models.decoders.pan import PANDecoder
+from octseg_torch.models.decoders.pspnet import PSPDecoder
 from octseg_torch.models.decoders.unet import UnetDecoder, UnetPlusPlusDecoder
 from octseg_torch.models.encoders import SUPPORTED_ENCODERS, create_encoder
 from octseg_torch.models.remat import set_block_remat
 
-# arch key -> (decoder class, head input width, head kernel): SMP's
-# SegmentationHead kernel is 3 for Unet/UNet++ and 1 for Linknet
+# arch key -> (decoder class, encoder output stride, head input width, head
+# kernel, head upsampling), octseg's _ARCHS: SMP's SegmentationHead kernel
+# is 3 for Unet/UNet++/MAnet/PSPNet/PAN and 1 for Linknet/FPN/DeepLab, and it
+# upsamples what the decoder leaves below full resolution
 _ARCHS = {
-    'unet': (UnetDecoder, 16, 3),
-    'unetplusplus': (UnetPlusPlusDecoder, 16, 3),
-    'linknet': (LinkNetDecoder, 32, 1),
+    'unet': (UnetDecoder, 32, 16, 3, 1),
+    'unetplusplus': (UnetPlusPlusDecoder, 32, 16, 3, 1),
+    'linknet': (LinkNetDecoder, 32, 32, 1, 1),
+    'fpn': (FPNDecoder, 32, 128, 1, 4),
+    'pspnet': (PSPDecoder, 32, 512, 3, 8),
+    'pan': (PANDecoder, 16, 32, 3, 4),
+    'manet': (MAnetDecoder, 32, 16, 3, 1),
+    'deeplabv3': (DeepLabV3Decoder, 8, 256, 1, 8),
+    'deeplabv3plus': (DeepLabV3PlusDecoder, 16, 256, 1, 4),
 }
 
 # octseg's SUPPORTED_ARCHITECTURES
@@ -34,7 +47,7 @@ SUPPORTED_ARCHITECTURES = ['Unet', 'UnetPlusPlus', 'LinkNet', 'FPN', 'PSPNet', '
 def normalize_arch(arch: str) -> str:
     """Architecture spelling as octseg.models.normalize_arch keys it."""
     key = arch.lower().replace('_', '').replace('-', '').replace('++', 'plusplus')
-    if key not in {a.lower() for a in SUPPORTED_ARCHITECTURES}:
+    if key not in _ARCHS:
         raise ValueError(f'Unknown architecture {arch!r}; supported: {SUPPORTED_ARCHITECTURES}')
     return key
 
@@ -45,17 +58,10 @@ def create_model(arch: str, encoder_name: str, classes: int = 1,
     ``dtype`` (octseg's ``dtype``: bfloat16 for mixed precision; logits are
     float32 either way, models/common.py) and, with ``remat``, checkpoints
     its blocks in training (models/remat.py)."""
-    key = normalize_arch(arch)
-    if key not in _ARCHS:
-        raise NotImplementedError(
-            f'{arch} is not ported yet: octseg_torch has the Unet, UnetPlusPlus and LinkNet '
-            f'decoders; FPN, PSPNet, PAN, MAnet, DeepLabV3 and DeepLabV3Plus (and the '
-            f'dilated encoders at output stride 8 and 16 that PAN and DeepLab need) are '
-            f'ROADMAP.md "The rest of the model zoo"')
-    decoder_cls, head_in, head_kernel = _ARCHS[key]
-    encoder = create_encoder(encoder_name)
+    decoder_cls, output_stride, head_in, head_kernel, upsampling = _ARCHS[normalize_arch(arch)]
+    encoder = create_encoder(encoder_name, output_stride)
     model = SegmentationModel(encoder, decoder_cls(encoder.out_channels), head_in=head_in,
-                              classes=classes, head_kernel=head_kernel)
+                              classes=classes, head_kernel=head_kernel, upsampling=upsampling)
     return set_block_remat(set_compute_dtype(model, dtype), remat)
 
 

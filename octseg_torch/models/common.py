@@ -14,7 +14,15 @@ E[(x - E[x])^2], which differs in rounding only.
 
 ``Conv2dSame`` pads as XLA's ``padding='SAME'`` (TF SAME, what
 efficientnet-pytorch's Conv2dStaticSamePadding does): asymmetric, the odd
-pixel after, computed from the input size at each call.
+pixel after, computed from the input size and the effective kernel
+(k-1)·d+1 at each call.
+
+``resize_bilinear_torch`` is octseg's torch-semantics bilinear resize (the
+decoders' ``align_corners`` resizes and the head's upsampling), torch's
+``F.interpolate`` in float32; ``GroupNorm`` computes in float32
+with torch's eps 1e-5. ``Dropout`` and ``Dropout2d`` draw their masks from a
+``torch.Generator`` the caller hands over (``set_dropout_generator``), never
+from the global RNG.
 
 Compute dtype (octseg's ``dtype``, set by ``set_compute_dtype``): with
 bfloat16, every convolution casts its input, weight and bias to bfloat16 at
@@ -49,7 +57,10 @@ class BatchNorm2d(nn.BatchNorm2d):
         # bfloat16 at the output, and no float32 copy of the activations
         if not self.training:
             return super().forward(x)
-        y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+        # torch.batch_norm, not F.batch_norm: a pooled 1x1 map of one sample
+        # normalises to its bias, as in flax, where F.batch_norm raises
+        y = torch.batch_norm(x, self.weight, self.bias, None, None, True, 0.0, self.eps,
+                             torch.backends.cudnn.enabled)
         if not recomputing():
             with torch.no_grad():
                 # float32 statistics of a bfloat16 input (no copy for float32)
@@ -108,8 +119,8 @@ class Conv2dSame(Conv2d):
     over an even size) pad the input first."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel: int, stride: int = 1,
-                 groups: int = 1, bias: bool = False):
-        super().__init__(in_ch, out_ch, kernel, stride, 0, groups=groups, bias=bias)
+                 groups: int = 1, bias: bool = False, dilation: int = 1):
+        super().__init__(in_ch, out_ch, kernel, stride, 0, dilation, groups=groups, bias=bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         (top, bottom), (left, right) = (
@@ -127,16 +138,19 @@ class ConvBNAct(nn.Sequential):
 
     Children are named by ``NAMES``: SMP's ``Conv2dReLU`` (``0`` conv, ``1``
     bn, ``2`` relu); timm's ConvNormAct subclasses it with ``conv`` /
-    ``bn``."""
+    ``bn``. ``bias`` gives the conv a bias; ``bn=False`` puts an identity
+    where the BatchNorm was and a bias on the conv (SMP's Conv2dReLU without
+    batchnorm)."""
 
     NAMES: Sequence[str] = ('0', '1', '2')
 
     def __init__(self, in_ch: int, out_ch: int, kernel: int = 3, stride: int = 1,
-                 dilation: int = 1, act: bool = True, groups: int = 1):
+                 dilation: int = 1, act: bool = True, groups: int = 1, bias: bool = False,
+                 bn: bool = True):
         pad = dilation * (kernel - 1) // 2
         layers = [Conv2d(in_ch, out_ch, kernel, stride, pad, dilation, groups=groups,
-                         bias=False),
-                  BatchNorm2d(out_ch)]
+                         bias=bias or not bn),
+                  BatchNorm2d(out_ch) if bn else nn.Identity()]
         if act:
             layers.append(nn.ReLU(inplace=True))
         super().__init__(OrderedDict(zip(self.NAMES, layers)))
@@ -165,3 +179,96 @@ class SqueezeExcite(nn.Module):
 def upsample2x(x: torch.Tensor) -> torch.Tensor:
     """Nearest x2 upsample (each pixel repeated 2x2, octseg common.upsample)."""
     return F.interpolate(x, scale_factor=2, mode='nearest')
+
+
+def resize_bilinear_torch(x: torch.Tensor, size: Sequence[int],
+                          align_corners: bool = True) -> torch.Tensor:
+    """NCHW bilinear resize to ``size`` with torch's non-antialiased
+    semantics, as octseg's ``resize_bilinear_torch`` (which builds them as
+    float32 interpolation matrices): computed in float32 and returned in
+    ``x``'s dtype."""
+    return F.interpolate(x.float(), size=(int(size[0]), int(size[1])), mode='bilinear',
+                         align_corners=align_corners).to(x.dtype)
+
+
+class GroupNorm(nn.GroupNorm):
+    """torch's GroupNorm (eps 1e-5, as octseg pins flax's) computed in
+    float32 and returned in the input's dtype, as flax's
+    ``nn.GroupNorm(dtype=bfloat16)`` does."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.group_norm(x.float(), self.num_groups, self.weight, self.bias,
+                            self.eps).to(x.dtype)
+
+
+class SeparableConv2d(nn.Sequential):
+    """SMP's SeparableConv2d: ``0`` a depthwise kxk conv (dilated, torch
+    padding), ``1`` a pointwise 1x1 conv, both without bias."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel: int = 3, dilation: int = 1):
+        super().__init__(
+            Conv2d(in_ch, in_ch, kernel, 1, dilation * (kernel - 1) // 2, dilation,
+                   groups=in_ch, bias=False),
+            Conv2d(in_ch, out_ch, 1, bias=False))
+
+
+class SeparableConvBNAct(nn.Sequential):
+    """``0`` SeparableConv2d, ``1`` BatchNorm, ``2`` ReLU (SMP's
+    ASPPSeparableConv and the DeepLabV3+ blocks)."""
+
+    def __init__(self, in_ch: int, out_ch: int, dilation: int = 1):
+        super().__init__(SeparableConv2d(in_ch, out_ch, 3, dilation), BatchNorm2d(out_ch),
+                         nn.ReLU(inplace=True))
+
+
+class _Dropout(nn.Module):
+    """Dropout with probability ``p`` in train mode, drawn from
+    ``self.generator`` (set by ``set_dropout_generator``); kept values are
+    scaled by 1/(1-p), as flax's ``nn.Dropout`` does. Identity in eval
+    mode."""
+
+    def __init__(self, p: float):
+        super().__init__()
+        self.p = float(p)
+        self.generator: Optional[torch.Generator] = None
+
+    def mask_shape(self, x: torch.Tensor) -> Tuple[int, ...]:
+        raise NotImplementedError
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.p == 0.0:
+            return x
+        if self.generator is None:
+            raise RuntimeError('dropout in train mode needs a generator: '
+                               'models.common.set_dropout_generator(model, generator)')
+        keep = torch.rand(self.mask_shape(x), generator=self.generator,
+                          device=x.device) >= self.p
+        return torch.where(keep, x / (1.0 - self.p), torch.zeros((), dtype=x.dtype,
+                                                                 device=x.device))
+
+    def extra_repr(self) -> str:
+        return f'p={self.p}'
+
+
+class Dropout(_Dropout):
+    """Elementwise dropout (torch's nn.Dropout; SMP's ASPP, 0.5)."""
+
+    def mask_shape(self, x: torch.Tensor) -> Tuple[int, ...]:
+        return tuple(x.shape)
+
+
+class Dropout2d(_Dropout):
+    """Whole-channel dropout (torch's nn.Dropout2d; SMP's FPN and PSPNet,
+    0.2): one draw per (sample, channel), broadcast over H and W."""
+
+    def mask_shape(self, x: torch.Tensor) -> Tuple[int, ...]:
+        return tuple(x.shape[:2]) + (1, 1)
+
+
+def set_dropout_generator(model: nn.Module, generator: Optional[torch.Generator]
+                          ) -> nn.Module:
+    """Every dropout of ``model`` draws from ``generator``. Returns it."""
+    for mod in model.modules():
+        if isinstance(mod, _Dropout):
+            mod.generator = generator
+    return model

@@ -1,10 +1,12 @@
 """Weights bridge between the JAX package's flax tree and the port's
 ``state_dict``.
 
-The inverse of octseg/models/convert_torch.py for the ported pieces: the
-resnet, timm-regnet and efficientnet encoders (``_convert_resnet``,
-``_convert_regnet``, ``_convert_efficientnet``), the Unet, UNet++ and LinkNet
-decoders and the segmentation head. Port module names are SMP's, so
+The inverse of octseg/models/convert_torch.py: the resnet, timm-regnet and
+efficientnet encoders (``_convert_resnet``, ``_convert_regnet``,
+``_convert_efficientnet``; their dilated variants have the same names), the
+nine decoders (``_convert_{unet,unetpp,linknet,fpn,psp,pan,manet,
+deeplabv3,deeplabv3plus}_decoder``) and the segmentation head. Port module
+names are SMP's, so
 ``state_dict_to_variables`` computes what ``convert_checkpoint`` computes,
 and ``variables_to_state_dict`` undoes it:
 
@@ -13,7 +15,8 @@ and ``variables_to_state_dict`` undoes it:
   the same axis permutation;
 - a conv bias, where the torch conv has one, <-> ``bias``;
 - BatchNorm ``weight/bias/running_mean/running_var`` <-> ``scale/bias``
-  (params) and ``mean/var`` (batch_stats).
+  (params) and ``mean/var`` (batch_stats);
+- GroupNorm ``weight/bias`` <-> ``scale/bias`` (params).
 """
 
 from __future__ import annotations
@@ -29,12 +32,12 @@ from octseg_torch.models.encoders.regnet import _CONFIGS as REGNETS
 from octseg_torch.models.encoders.resnet import RESNETS, Bottleneck
 
 # (kind, torch module prefix, flax path): kind 'conv' (weight), 'conv+bias'
-# (weight and bias) or 'bn'
+# (weight and bias), 'bn' or 'gn'
 _Entry = Tuple[str, str, str]
 
 
-def _conv_bn(tconv: str, tbn: str, f: str) -> Iterator[_Entry]:
-    yield 'conv', tconv, f'{f}/Conv_0'
+def _conv_bn(tconv: str, tbn: str, f: str, bias: bool = False) -> Iterator[_Entry]:
+    yield 'conv+bias' if bias else 'conv', tconv, f'{f}/Conv_0'
     yield 'bn', tbn, f'{f}/BatchNorm_0'
 
 
@@ -117,18 +120,100 @@ def _linknet() -> Iterator[_Entry]:
         yield from _conv_bn(f'{t}.2.0', f'{t}.2.1', f'{f}/ConvBNAct_1')
 
 
+def _fpn() -> Iterator[_Entry]:
+    yield 'conv+bias', 'decoder.p5', 'decoder/p5'
+    for lvl in (4, 3, 2):
+        yield 'conv+bias', f'decoder.p{lvl}.skip_conv', f'decoder/p{lvl}_skip'
+    for i, n_up in enumerate((3, 2, 1, 0)):
+        for j in range(max(n_up, 1)):
+            t, f = f'decoder.seg_blocks.{i}.block.{j}.block', f'decoder/seg_{i}_{j}'
+            yield 'conv', f'{t}.0', f'{f}/Conv_0'
+            yield 'gn', f'{t}.1', f'{f}/GroupNorm_0'
+
+
+def _psp() -> Iterator[_Entry]:
+    for i in range(4):
+        t, f = f'decoder.psp.blocks.{i}.pool.1', f'decoder/psp_{i}'
+        if i == 0:   # the 1-bin branch: no BatchNorm, a conv bias
+            yield 'conv+bias', f'{t}.0', f'{f}/Conv_0'
+        else:
+            yield from _conv_bn(f'{t}.0', f'{t}.1', f)
+    yield from _conv_bn('decoder.conv.0', 'decoder.conv.1', 'decoder/conv')
+
+
+# (torch ConvBnRelu path, flax module name) inside the PAN FPA block
+_PAN_FPA = [('branch1.1', 'branch1'), ('mid.0', 'mid'), ('down1.1', 'down1'),
+            ('down2.1', 'down2'), ('down3.1', 'down3_0'), ('down3.2', 'down3_1'),
+            ('conv2', 'conv2'), ('conv1', 'conv1')]
+
+
+def _pan() -> Iterator[_Entry]:
+    for t, f in _PAN_FPA:
+        yield from _conv_bn(f'decoder.fpa.{t}.conv', f'decoder.fpa.{t}.bn', f'decoder/fpa/{f}',
+                            bias=True)
+    for g in (3, 2, 1):
+        t, f = f'decoder.gau{g}', f'decoder/gau{g}'
+        yield from _conv_bn(f'{t}.conv1.1.conv', f'{t}.conv1.1.bn', f'{f}/conv1', bias=True)
+        yield from _conv_bn(f'{t}.conv2.conv', f'{t}.conv2.bn', f'{f}/conv2', bias=True)
+
+
+def _manet() -> Iterator[_Entry]:
+    for t, f in (('top_conv', 'top'), ('center_conv', 'center'), ('bottom_conv', 'bottom'),
+                 ('out_conv', 'out')):
+        yield 'conv+bias', f'decoder.center.{t}', f'decoder/center/{f}'
+    for i in range(4):
+        t, f = f'decoder.blocks.{i}', f'decoder/block{i}'
+        for c in range(2):
+            yield from _conv_bn(f'{t}.hl_conv.{c}.0', f'{t}.hl_conv.{c}.1', f'{f}/hl_conv_{c}')
+        for se in ('hl', 'll'):
+            yield 'conv+bias', f'{t}.SE_{se}.1', f'{f}/se_{se}_fc1'
+            yield 'conv+bias', f'{t}.SE_{se}.3', f'{f}/se_{se}_fc2'
+        for c in (1, 2):
+            yield from _conv_bn(f'{t}.conv{c}.0', f'{t}.conv{c}.1', f'{f}/conv{c}')
+    for c in (1, 2):
+        yield from _conv_bn(f'decoder.blocks.4.conv{c}.0', f'decoder.blocks.4.conv{c}.1',
+                            f'decoder/block4/conv{c}')
+
+
+def _separable(t: str, tbn: str, f: str) -> Iterator[_Entry]:
+    """SeparableConv2d ``t`` (``.0`` depthwise, ``.1`` pointwise) and its
+    BatchNorm ``tbn`` -> octseg's SeparableConvBNAct ``f`` (``dw``, ``pw``)."""
+    yield 'conv', f'{t}.0', f'{f}/dw'
+    yield from _conv_bn(f'{t}.1', tbn, f'{f}/pw')
+
+
+def _aspp(t: str, f: str, separable: bool) -> Iterator[_Entry]:
+    yield from _conv_bn(f'{t}.convs.0.0', f'{t}.convs.0.1', f'{f}/convs0')
+    for i in (1, 2, 3):
+        if separable:
+            yield from _separable(f'{t}.convs.{i}.0', f'{t}.convs.{i}.1', f'{f}/convs{i}')
+        else:
+            yield from _conv_bn(f'{t}.convs.{i}.0', f'{t}.convs.{i}.1', f'{f}/convs{i}')
+    yield from _conv_bn(f'{t}.convs.4.1', f'{t}.convs.4.2', f'{f}/convs4')
+    yield from _conv_bn(f'{t}.project.0', f'{t}.project.1', f'{f}/project')
+
+
+def _deeplabv3() -> Iterator[_Entry]:
+    yield from _aspp('decoder.0', 'decoder/aspp', separable=False)
+    yield from _conv_bn('decoder.1', 'decoder.2', 'decoder/conv')
+
+
+def _deeplabv3plus() -> Iterator[_Entry]:
+    yield from _aspp('decoder.aspp.0', 'decoder/aspp', separable=True)
+    yield from _separable('decoder.aspp.1', 'decoder.aspp.2', 'decoder/aspp_sep')
+    yield from _conv_bn('decoder.block1.0', 'decoder.block1.1', 'decoder/block1')
+    yield from _separable('decoder.block2.0', 'decoder.block2.1', 'decoder/block2')
+
+
 _ENCODERS = {'resnet': _resnet, 'timm-regnet': _regnet, 'efficientnet': _efficientnet}
-_DECODERS = {'unet': _unet, 'unetplusplus': _unetpp, 'linknet': _linknet}
+_DECODERS = {'unet': _unet, 'unetplusplus': _unetpp, 'linknet': _linknet, 'fpn': _fpn,
+             'pspnet': _psp, 'pan': _pan, 'manet': _manet, 'deeplabv3': _deeplabv3,
+             'deeplabv3plus': _deeplabv3plus}
 
 
 def _entries(architecture: str, encoder: str) -> Iterator[_Entry]:
-    key = normalize_arch(architecture)
-    if key not in _DECODERS:
-        raise NotImplementedError(
-            f'no weights bridge for the {architecture} decoder yet: ROADMAP.md "The rest of '
-            f'the model zoo"')
     yield from _ENCODERS[encoder_family(encoder)](encoder)
-    yield from _DECODERS[key]()
+    yield from _DECODERS[normalize_arch(architecture)]()
     yield 'conv+bias', 'segmentation_head.0', 'head/Conv_0'
 
 
@@ -152,6 +237,10 @@ def variables_to_state_dict(variables: Dict[str, Any], architecture: str,
     params, stats = variables['params'], variables['batch_stats']
     sd: Dict[str, np.ndarray] = {}
     for kind, t, f in _entries(architecture, encoder):
+        if kind == 'gn':
+            sd[f'{t}.weight'] = np.asarray(_get(params, f'{f}/scale'))
+            sd[f'{t}.bias'] = np.asarray(_get(params, f'{f}/bias'))
+            continue
         if kind == 'bn':
             sd[f'{t}.weight'] = np.asarray(_get(params, f'{f}/scale'))
             sd[f'{t}.bias'] = np.asarray(_get(params, f'{f}/bias'))
@@ -174,6 +263,10 @@ def state_dict_to_variables(sd: Dict[str, np.ndarray], architecture: str,
     params: Dict[str, Any] = {}
     stats: Dict[str, Any] = {}
     for kind, t, f in _entries(architecture, encoder):
+        if kind == 'gn':
+            _put(params, f'{f}/scale', np.asarray(sd[f'{t}.weight']))
+            _put(params, f'{f}/bias', np.asarray(sd[f'{t}.bias']))
+            continue
         if kind == 'bn':
             _put(params, f'{f}/scale', np.asarray(sd[f'{t}.weight']))
             _put(params, f'{f}/bias', np.asarray(sd[f'{t}.bias']))

@@ -1,8 +1,8 @@
 """Encoder registry: the family of an SMP encoder name, its module and its
 pyramid widths (the port of octseg/models/encoders/__init__.py).
 
-Every variant of the three families is ported at output stride 32; the
-dilated encoders (output stride 8 or 16, for PAN and DeepLab) raise.
+Every variant of the three families is ported, at output stride 32 and
+dilated at 8 and 16 (DeepLabV3 and DeepLabV3Plus, PAN).
 """
 
 from __future__ import annotations
@@ -36,11 +36,7 @@ def encoder_family(encoder_name: str) -> str:
 
 def create_encoder(encoder_name: str, output_stride: int = 32) -> nn.Module:
     family = encoder_family(encoder_name)
-    if output_stride != 32:
-        raise NotImplementedError(
-            f'{encoder_name} at output stride {output_stride} is not ported yet: the dilated '
-            f'encoders are ROADMAP.md "The rest of the model zoo"')
-    return _FAMILIES[family][1](encoder_name)
+    return _FAMILIES[family][1](encoder_name, output_stride)
 
 
 def encoder_out_channels(encoder_name: str) -> Sequence[int]:

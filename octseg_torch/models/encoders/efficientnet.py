@@ -1,14 +1,17 @@
 """EfficientNet encoders b0-b7 as a 6-level feature pyramid.
 
-The port of octseg/models/encoders/efficientnet.py at output stride 32,
-with efficientnet-pytorch's module names (the package SMP wraps for
+The port of octseg/models/encoders/efficientnet.py, with
+efficientnet-pytorch's module names (the package SMP wraps for
 ``efficientnet-bX``): ``_conv_stem``/``_bn0``, then the flat
 ``_blocks.{i}._expand_conv/_bn0/_depthwise_conv/_bn1/_se_reduce/_se_expand
 /_project_conv/_bn2``. Every convolution pads as XLA's SAME and every
 BatchNorm has eps 1e-3, as in efficientnet-pytorch.
 
 ``forward(x) -> [x, f1, ..., f5]`` with f_i at spatial stride 2**i: the
-stem, then the outputs of stages 1, 2, 4 and 6.
+stem, then the outputs of stages 1, 2, 4 and 6. Past ``output_stride`` a
+stride-2 stage keeps stride 1 and doubles the dilation of the depthwise
+convs of it and of every stage after it; their SAME padding uses the
+dilated kernel (k-1)·d+1, as XLA's does.
 """
 
 from __future__ import annotations
@@ -87,7 +90,8 @@ class MBConv(RematBlock):
     squeeze-excite on ``max(1, int(in * 0.25))`` channels (swish), project
     1x1 (no activation); the residual when stride = 1 and in = out."""
 
-    def __init__(self, in_ch: int, out_ch: int, expand: int, kernel: int, stride: int):
+    def __init__(self, in_ch: int, out_ch: int, expand: int, kernel: int, stride: int,
+                 dilation: int = 1):
         super().__init__()
         mid = in_ch * expand
         self.expand = expand != 1
@@ -95,7 +99,8 @@ class MBConv(RematBlock):
         if self.expand:
             self._expand_conv = Conv2dSame(in_ch, mid, 1)
             self._bn0 = BatchNorm2d(mid, eps=BN_EPS)
-        self._depthwise_conv = Conv2dSame(mid, mid, kernel, stride, groups=mid)
+        self._depthwise_conv = Conv2dSame(mid, mid, kernel, stride, groups=mid,
+                                          dilation=dilation)
         self._bn1 = BatchNorm2d(mid, eps=BN_EPS)
         reduced = max(1, int(in_ch * 0.25))
         self._se_reduce = Conv2d(mid, reduced, 1)
@@ -112,7 +117,7 @@ class MBConv(RematBlock):
 
 
 class EfficientNetEncoder(nn.Module):
-    def __init__(self, variant: str = 'efficientnet-b0'):
+    def __init__(self, variant: str = 'efficientnet-b0', output_stride: int = 32):
         super().__init__()
         self.out_channels = efficientnet_out_channels(variant)
         stem = self.out_channels[1]
@@ -120,8 +125,15 @@ class EfficientNetEncoder(nn.Module):
         self._bn0 = BatchNorm2d(stem, eps=BN_EPS)
         spec = flattened_blocks(variant)
         in_ch, blocks, self._taps = stem, [], set()
+        current_stride, dilation = 2, 1
         for i, blk in enumerate(spec):
-            blocks.append(MBConv(in_ch, blk['out'], blk['expand'], blk['kernel'], blk['stride']))
+            stride = blk['stride']
+            if stride == 2 and current_stride >= output_stride:
+                stride, dilation = 1, dilation * 2
+            elif stride == 2:
+                current_stride *= 2
+            blocks.append(MBConv(in_ch, blk['out'], blk['expand'], blk['kernel'], stride,
+                                 dilation))
             in_ch = blk['out']
             last_of_stage = i + 1 == len(spec) or spec[i + 1]['stage'] != blk['stage']
             if last_of_stage and blk['stage'] in _TAP_STAGES:

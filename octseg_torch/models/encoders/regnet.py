@@ -1,12 +1,13 @@
 """RegNetX/Y encoders as a 6-level feature pyramid.
 
-The port of octseg/models/encoders/regnet.py at output stride 32, with
-timm's module names: ``stem.conv/stem.bn``, then
+The port of octseg/models/encoders/regnet.py, with timm's module names: ``stem.conv/stem.bn``, then
 ``s{k}.b{j}.conv{1,2,3}.{conv,bn}``, ``se.fc1/fc2`` (Y variants) and
 ``downsample.{conv,bn}``.
 
 ``forward(x) -> [x, f1, ..., f5]``: the stem (32 channels, 3x3, stride 2),
-then the four stages, each halving the resolution.
+then the four stages, each halving the resolution until ``output_stride``;
+past it a stage keeps stride 1 and doubles the dilation of its grouped 3x3
+convs (every block of it, and of the stages after it).
 """
 
 from __future__ import annotations
@@ -49,10 +50,11 @@ class RegNetBlock(RematBlock):
     strided 1x1 downsample where the shapes differ; relu after the sum."""
 
     def __init__(self, in_ch: int, width: int, stride: int, group_width: int, se: bool,
-                 se_in: int):
+                 se_in: int, dilation: int = 1):
         super().__init__()
         self.conv1 = ConvNormAct(in_ch, width, 1)
-        self.conv2 = ConvNormAct(width, width, 3, stride, groups=max(width // group_width, 1))
+        self.conv2 = ConvNormAct(width, width, 3, stride, dilation,
+                                 groups=max(width // group_width, 1))
         self.se = SqueezeExcite(width, max(se_in // 4, 1)) if se else None
         self.conv3 = ConvNormAct(width, width, 1, act=False)
         self.downsample = (ConvNormAct(in_ch, width, 1, stride, act=False)
@@ -67,17 +69,22 @@ class RegNetBlock(RematBlock):
 
 
 class RegNetEncoder(nn.Module):
-    def __init__(self, variant: str = 'timm-regnetx_002'):
+    def __init__(self, variant: str = 'timm-regnetx_002', output_stride: int = 32):
         super().__init__()
         cfg = _CONFIGS[variant]
         self.stem = ConvNormAct(3, _STEM_WIDTH, 3, 2)
-        in_ch = _STEM_WIDTH
+        in_ch, current_stride, dilation = _STEM_WIDTH, 2, 1
         for k, (width, depth) in enumerate(zip(cfg['widths'], cfg['depths']), start=1):
+            stride = 2
+            if current_stride >= output_stride:
+                stride, dilation = 1, dilation * 2
+            else:
+                current_stride *= 2
             blocks = OrderedDict()
             for j in range(1, depth + 1):
                 # the SE width is the block input's: the stage input for b1
-                blocks[f'b{j}'] = RegNetBlock(in_ch, width, 2 if j == 1 else 1, cfg['group'],
-                                              cfg['se'], in_ch)
+                blocks[f'b{j}'] = RegNetBlock(in_ch, width, stride if j == 1 else 1,
+                                              cfg['group'], cfg['se'], in_ch, dilation)
                 in_ch = width
             setattr(self, f's{k}', nn.Sequential(blocks))
         self.out_channels = regnet_out_channels(variant)

@@ -50,9 +50,7 @@ def train_folds(cfg: Config) -> List[dict]:
     save_root = os.path.join(cfg.get('save_dir', 'models'), run_name)
     os.makedirs(save_root, exist_ok=True)
 
-    device = octseg_torch.resolve_device(cfg.get('device'))
-    pool = ([torch.device('cuda', i) for i in range(torch.cuda.device_count())]
-            if device.type == 'cuda' and device.index is None else [device])
+    pool = octseg_torch.device_pool(cfg.get('device'))
     k = max(1, min(int(cfg.get('concurrent_folds', 1)), len(pool), len(folds)))
     # a finished fold returns its device before the next fold claims one:
     # binding devices by fold index would put two folds on one device when

@@ -42,6 +42,7 @@ from octseg_torch.data.image import read_png, resize_linear_u8, resize_nearest_u
 from octseg_torch.data.tiffio import read_tiff
 from octseg_torch.infer.engine import fp32_exact
 from octseg_torch.models import create_model
+from octseg_torch.models.common import set_dropout_generator
 from octseg_torch.ops.augment import augment_batch
 from octseg_torch.ops.normalize import normalize_imagenet, sigmoid_threshold
 from octseg_torch.train import checkpoint as ckpt
@@ -83,12 +84,15 @@ def _loss_and_logits(model: nn.Module, imgs: torch.Tensor, masks: torch.Tensor):
 
 def make_train_step(use_augmentation: bool) -> Callable:
     """``train_step(state, imgs, masks, generator) -> metrics`` (device
-    tensors): augment, forward, backward and one optimizer update."""
+    tensors): augment, forward, backward and one optimizer update. The
+    augmentation draws from ``generator`` first, then the model's dropout
+    (FPN, PSPNet, DeepLab), as octseg splits its step key into both."""
 
     def train_step(state: TrainState, imgs: torch.Tensor, masks: torch.Tensor,
                    generator: torch.Generator) -> Dict[str, torch.Tensor]:
         if use_augmentation:
             imgs, masks = augment_batch(imgs, masks, generator)
+        set_dropout_generator(state.model, generator)
         state.model.train()
         with fp32_exact():
             loss, logits, targets = _loss_and_logits(state.model, imgs, masks)

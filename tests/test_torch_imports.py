@@ -3,9 +3,12 @@
 The machine with the card has no jax, flax, optax, cv2, PIL, yaml or
 msgpack, and the port must not lean on the JAX package: a clean interpreter
 runs the port's CPU predict path on a tiny pullback and on an image
-directory (a PNG and a JPEG, bf16), and a CPU training epoch (augmentation
-on) on a tiny synthetic fold, and must not have loaded any of them; an AST scan checks every import statement of the package and
-of chip_smoke.py.
+directory (a PNG and a JPEG, bf16), a CPU training epoch (augmentation
+on) on a tiny synthetic fold, a DeepLabV3Plus forward (a dilated encoder)
+and a GP-EI suggestion of the tuner after three observations, and must not
+have loaded any of them (nor sklearn, which octseg's tuner fits its GP
+with); an AST scan checks every import statement of the package and of
+chip_smoke.py.
 """
 
 import ast
@@ -20,7 +23,7 @@ import octseg
 
 REPO = octseg.PROJECT_DIR
 BANNED = ('jax', 'jaxlib', 'flax', 'optax', 'cv2', 'PIL', 'yaml', 'msgpack', 'octseg',
-          'scipy')
+          'scipy', 'sklearn')
 
 SCRIPT = r'''
 import json, os, sys
@@ -56,6 +59,17 @@ make_synth_fold(f'{tmp}/fold', n_train=4, n_test=2, size=40, seed=1)
 summary = train(overrides=[f'data_dir={tmp}/fold', f'save_dir={tmp}/models', 'device=cpu',
                            'architecture=Unet', 'encoder=resnet18', 'input_size=32',
                            'batch_size=2', 'epochs=1', 'classes=[Lumen]'])
+# the zoo's dilated encoders and the tuner's numpy GP
+import torch
+from octseg_torch.models import create_model
+from octseg_torch.tune.search import BayesianSearch, SearchSpace
+with torch.no_grad():
+    zoo = create_model('DeepLabV3Plus', 'resnet18').eval()(torch.zeros(1, 3, 32, 32))
+space = SearchSpace({'architecture': ['FPN', 'PAN'], 'lr': [1e-3, 1e-4], 'input_size': [64]})
+search = BayesianSearch(space, seed=0, n_random=3)
+for value in (0.1, 0.5, 0.3):
+    search.observe(search.suggest(), value)
+gp_point = search.suggest()
 banned = %r
 loaded = sorted(m for m in sys.modules if m.split('.')[0] in banned)
 print(json.dumps({'frames': result['frames'], 'outputs': sorted(os.listdir(f'{tmp}/out')),
@@ -63,6 +77,7 @@ print(json.dumps({'frames': result['frames'], 'outputs': sorted(os.listdir(f'{tm
                   'image_outputs': sorted(os.listdir(f'{tmp}/out_images')),
                   'train_steps': summary['train_steps'],
                   'model_files': sorted(os.listdir(summary['model_dir'])),
+                  'zoo_shape': list(zoo.shape), 'gp_point': gp_point,
                   'loaded': loaded}))
 ''' % (BANNED,)
 
@@ -84,6 +99,8 @@ def test_cpu_predict_path_loads_no_banned_module(tmp_path):
     assert result['train_steps'] == 2
     assert {'metrics.csv', 'weights.ckpt', 'resume.ckpt', 'config.json'} <= set(
         result['model_files'])
+    assert result['zoo_shape'] == [1, 1, 32, 32]
+    assert result['gp_point']['architecture'] in ('FPN', 'PAN')
 
 
 def _python_files():
