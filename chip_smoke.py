@@ -5,9 +5,10 @@ Usage: python3 chip_smoke.py   (from the repository root; needs one CUDA card)
 
 Phases, each raising on failure (exit code != 0):
   1. card name and power limit (nvidia-smi), torch and CUDA versions;
-  2. build the port's CUDA kernels with nvcc and the JPEG entropy decoder
-     and the contour tracer (host C++) with g++, one process per source,
-     all started together;
+  2. build the port's CUDA kernels with nvcc, and the JPEG entropy decoder,
+     the contour tracer, the training loader and the LZW codec (host C++)
+     with g++, one process per library, all started together; report
+     whether zlib's header and libz.so.1 are there;
   3. K1, the fused overlay postprocess kernel, against its plain torch
      version on the card (ring bit-exact, fill within 1e-5) at the predict
      path's shape (128, 1000, 1000), at 32 and 64 masks of 1000x1000, and
@@ -70,9 +71,14 @@ Phases, each raising on failure (exit code != 0):
   8. the training path at full width: a synthetic fold of 1000 px frames
      (16 train, 4 test, 2 vis), ``octseg_torch.train.train.main`` for two
      epochs with every other key from configs/train.yaml (Unet/resnet50 at
-     512, batch 4, four classes, Adam, augmentation on); K2 must launch once
-     per training step; then one step at those shapes timed alone and
-     profiled (device busy time by kernel, idle share);
+     512, batch 4, four classes, Adam, augmentation on) through the C++
+     loader (``native_loader: auto``); K2 must launch once per training
+     step; then one step at those shapes timed alone and profiled (device
+     busy time by kernel, idle share);
+  8a. the training path again with ``native_loader=false`` (the Python
+     loader), for its data-wait share beside the C++ loader's; the fold
+     through both loaders in index order: masks equal, images within
+     NATIVE_IMG_ATOL, samples/s of each;
   8b. the training path again with bf16=true; one fp32 step of Unet/
      resnet50 at 512 with remat on and off (gradients within
      REMAT_GRAD_GAP, BatchNorm statistics within BN_STATS_ATOL); the memory
@@ -105,7 +111,15 @@ Phases, each raising on failure (exit code != 0):
      trials, TUNE_EPOCHS epochs, TUNE_N_RANDOM random trials so the rest
      come from the GP-EI): every trial ``ok``, K2 once per step; then one
      trial more, which alone runs (resume);
- 12. one JSON line of kernels; last, the result line.
+ 12. ``get_model_info`` on the three winners at their input sizes
+     (parameters, GFLOPs); ``get_configs`` in CSV mode over the tune
+     phase's results: the best rows are the ``ok`` rows of the highest
+     val_f1 per architecture;
+ 13. explain: the LM winner (UNet++/resnet101 at 512) on one frame through
+     all nine CAM methods (seconds each; AblationCAM over 2048 channels in
+     64 chunks), GradCAM and EigenCAM on the CPU within CAM_GPU_ATOL of the
+     card's maps;
+ 14. one JSON line of kernels; last, the result line.
 
 Everything is written under a temporary directory that is removed at the
 end. Logs go to stderr; stdout carries the card line, the kernels line and
@@ -171,6 +185,11 @@ TUNE_TRIALS, TUNE_EPOCHS, TUNE_MIN_ITER, TUNE_N_RANDOM = 4, 2, 1, 2
 # gradient gap; BatchNorm running statistics within BN_STATS_ATOL
 REMAT_GRAD_GAP = 1e-4
 BN_STATS_ATOL = 1e-6
+# the C++ loader's images against the Python loader's (float bilinear
+# against cv2's fixed point; octseg's own bound), and a CAM map on the card
+# against the CPU's, on [0, 1] (bounds stated in PERF.md before the first run)
+NATIVE_IMG_ATOL = 1.0
+CAM_GPU_ATOL = 1e-2
 
 
 def log(msg: str) -> None:
@@ -834,11 +853,14 @@ def logits_gpu_vs_cpu(main):
     return record
 
 
-def train_path(tmp: str, bf16: bool = False):
+def train_path(tmp: str, bf16: bool = False, native: bool = True):
     """The training path at full width: configs/train.yaml's Unet/resnet50
     at 512, batch 4, four classes, Adam, augmentation on, two epochs over a
     synthetic fold of 1000 px frames (made by the first call); with
-    ``bf16``, ``bf16=true``."""
+    ``bf16``, ``bf16=true``. configs/train.yaml's ``native_loader: auto``
+    must train through the C++ loader; with ``native`` false the run sets
+    ``native_loader=false`` (the Python loader) and skips the step
+    breakdown."""
     import csv
     import math
 
@@ -863,10 +885,14 @@ def train_path(tmp: str, bf16: bool = False):
     torch.cuda.reset_peak_memory_stats()
     k1.launches = k2.launches = 0
     t = time.perf_counter()
-    save_dir = os.path.join(tmp, 'train_bf16' if bf16 else 'train')
+    save_dir = os.path.join(tmp, 'train' + ('_bf16' if bf16 else '') + ('' if native else
+                                                                      '_python'))
     summary = train(overrides=[f'data_dir={fold}', f'save_dir={save_dir}', 'epochs=2']
-                    + (['bf16=true'] if bf16 else []))
+                    + (['bf16=true'] if bf16 else []) + ([] if native else
+                                                         ['native_loader=false']))
     wall = time.perf_counter() - t
+    if summary['loader'] != ('native' if native else 'python'):
+        raise AssertionError(f'trained through the {summary["loader"]} loader')
     launches = {'k1': k1.launches, 'k2': k2.launches}
     peak = torch.cuda.max_memory_allocated()
 
@@ -896,10 +922,11 @@ def train_path(tmp: str, bf16: bool = False):
         raise AssertionError(f'{steps} train steps, {launches["k2"]} K2 launches')
     breakdown = step_breakdown(torch, manifest['architecture'], manifest['encoder'],
                                len(manifest['classes']), int(manifest['input_size']),
-                               int(manifest['batch_size']), bf16)
+                               int(manifest['batch_size']), bf16) if native else None
     secs = summary['seconds']
     loop = secs['data_wait'] + secs['train']
     record = {'model': f'{manifest["architecture"]}/{manifest["encoder"]}', 'bf16': bf16,
+              'loader': summary['loader'],
               'input_size': manifest['input_size'], 'batch_size': manifest['batch_size'],
               'train_steps': steps, 'train_samples': summary['train_samples'],
               'samples_per_s': summary['train_samples'] / loop, 'seconds': secs,
@@ -907,7 +934,8 @@ def train_path(tmp: str, bf16: bool = False):
               'peak_allocated_bytes': peak, 'launches': launches,
               'best_val_loss': summary['best_val_loss'], 'step': breakdown,
               'model_dir': model_dir, 'fold': fold}
-    log(f'training path ({"bf16" if bf16 else "fp32"}): {record["model"]} at '
+    log(f'training path ({"bf16" if bf16 else "fp32"}, {summary["loader"]} loader): '
+        f'{record["model"]} at '
         f'{record["input_size"]}, batch '
         f'{record["batch_size"]}: {steps} steps, {record["samples_per_s"]:.2f} samples/s in '
         f'the train loop, data-wait share {record["data_wait_share"]:.3f}; seconds per stage '
@@ -1915,6 +1943,166 @@ def tune_path(tmp: str):
             'resume_k2_launches': resume_launches, 'best': best}
 
 
+def native_loader_path(train):
+    """The training path's fold through the C++ loader and the Python
+    loader, configs/train.yaml's classes, input size and batch, shuffle off:
+    batch for batch (so in index order) the masks equal and the images
+    within NATIVE_IMG_ATOL; samples/s of each loader alone, over one pass
+    that starts when the loader is made."""
+    import numpy as np
+
+    from octseg_torch.core.config import load_config
+    from octseg_torch.train.data import OCTDataset, PrefetchLoader
+    from octseg_torch.train.native_loader import NativeLoader
+
+    cfg = load_config('train')
+    batch = int(cfg.batch_size)
+    dataset = OCTDataset(os.path.join(train['fold'], 'train'), list(cfg.classes),
+                         int(cfg.input_size))
+    t = time.perf_counter()
+    native = list(NativeLoader(dataset, batch, shuffle=False))
+    native_s = time.perf_counter() - t
+    t = time.perf_counter()
+    python = list(PrefetchLoader(dataset, batch, shuffle=False, drop_last=True))
+    python_s = time.perf_counter() - t
+    if len(native) != len(python) or not native:
+        raise AssertionError(f'{len(native)} native and {len(python)} Python batches')
+    err = 0.0
+    for (imgs, masks), (want_imgs, want_masks) in zip(native, python):
+        if not np.array_equal(masks, want_masks):
+            raise AssertionError('the C++ loader\'s masks differ from the Python loader\'s')
+        err = max(err, float(np.abs(imgs - want_imgs).max()))
+    if not err <= NATIVE_IMG_ATOL:
+        raise AssertionError(f'the C++ loader\'s images differ by {err}')
+    n = len(native) * batch
+    record = {'samples': n, 'batch_size': batch, 'input_size': int(cfg.input_size),
+              'frame_px': TRAIN_FRAME_PX, 'workers': max((os.cpu_count() or 2) - 1, 1),
+              'native_samples_per_s': n / native_s, 'python_samples_per_s': n / python_s,
+              'max_abs_img_delta': err, 'masks_equal': True}
+    log(f'native loader: {n} samples of {TRAIN_FRAME_PX} px to {cfg.input_size}, batches '
+        f'in index order; C++ {record["native_samples_per_s"]:.2f} samples/s, Python '
+        f'{record["python_samples_per_s"]:.2f} samples/s ({record["workers"]} workers each); '
+        f'masks equal, images within {err:.4f} (bound {NATIVE_IMG_ATOL})')
+    return record
+
+
+def model_info_path():
+    """``get_model_info`` on the ensemble's three winners at their input
+    sizes and class counts: parameters and GFLOPs."""
+    from octseg_torch.models.get_model_info import main as get_model_info
+
+    record = []
+    for name, classes, arch, encoder, size in ENSEMBLE:
+        t = time.perf_counter()
+        info = get_model_info(overrides=[f'architecture={arch}', f'encoder={encoder}',
+                                         f'input_size={size}', f'num_classes={len(classes)}'])
+        seconds = time.perf_counter() - t
+        if not (info['params'] > 0 and info['flops'] > 0):
+            raise AssertionError(f'{name}: {info}')
+        record.append({'model': name, **info, 'seconds': seconds})
+        log(f'model info {name} {arch}/{encoder} at {size}: {info["params_m"]} M parameters, '
+            f'{info["gflops"]} GFLOPs per frame ({seconds:.1f} s)')
+    return record
+
+
+def get_configs_path(tmp: str):
+    """``get_configs`` in CSV mode over the tune phase's
+    tuning_results.csv (configs/get_configs.yaml otherwise): the best rows
+    must be the ``ok`` rows of the highest val_f1 per architecture (the
+    first on ties), largest first."""
+    import csv
+
+    from octseg_torch.tune.get_configs import main as get_configs
+
+    tuning = os.path.join(tmp, 'tuning')
+    save_dir = os.path.join(tmp, 'configs')
+    get_configs(overrides=[f'tuning_dir={tuning}', f'save_dir={save_dir}'])
+    with open(os.path.join(tuning, 'tuning_results.csv'), newline='') as f:
+        trials = list(csv.DictReader(f))
+    best = {}
+    for r in trials:
+        if r['status'] == 'ok' and (r['architecture'] not in best or float(
+                r['val_f1']) > float(best[r['architecture']]['val_f1'])):
+            best[r['architecture']] = r
+    want = sorted((best[a] for a in sorted(best)), key=lambda r: -float(r['val_f1']))
+    with open(os.path.join(save_dir, 'configs_best.csv'), newline='') as f:
+        got = list(csv.DictReader(f))
+    if [(r['architecture'], r['trial']) for r in got] != \
+            [(r['architecture'], r['trial']) for r in want]:
+        raise AssertionError(f'configs_best.csv {got}, expected {want}')
+    with open(os.path.join(save_dir, 'configs_all.csv'), newline='') as f:
+        merged = list(csv.DictReader(f))
+    if len(merged) != len(trials):
+        raise AssertionError(f'configs_all.csv holds {len(merged)} of {len(trials)} trials')
+    log(f'get_configs: {len(merged)} trials merged; best per architecture '
+        f'{[(r["architecture"], r["trial"], r["val_f1"]) for r in got]}')
+    return {'trials': len(merged),
+            'best': [{k: r[k] for k in ('architecture', 'encoder', 'trial', 'val_f1')}
+                     for r in got]}
+
+
+def explain_path(main):
+    """CAM on the card: the LM winner (UNet++/resnet101 at 512, the main
+    path's model dir) on one frame, all nine methods (seconds each, after
+    one untimed GradCAM; AblationCAM decodes the deepest level's channels
+    32 at a time), every map finite, in [0, 1] and at the input size; then
+    GradCAM and EigenCAM on the CPU from the same weights within
+    CAM_GPU_ATOL of the card's maps."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from octseg_torch.explain import CAM_METHODS, CAMProcessor
+    from octseg_torch.infer.engine import fp32_exact, load_model_bundle
+    from octseg_torch.ops.normalize import normalize_imagenet
+
+    model_dir = os.path.join(main['models'], 'LM')
+    model, manifest = load_model_bundle(model_dir, 'cuda')
+    size = int(manifest['input_size'])
+    frame = np.repeat(synthetic_pullback(1, size, 5)[0][:, :, None], 3, axis=2)
+    x = normalize_imagenet(torch.from_numpy(frame.astype(np.float32))).numpy()
+    with torch.no_grad(), fp32_exact():
+        logits = model(torch.from_numpy(x.transpose(2, 0, 1)[None]).cuda())[0, 0].cpu().numpy()
+    # random weights saturate the logits: a median split keeps the target's
+    # mask non-empty
+    mask = (logits > np.median(logits)).astype(np.float32)
+    maps, seconds = {}, {}
+    with fp32_exact():
+        CAMProcessor(model).extract_activation_map(x, 0, mask)
+        for method in CAM_METHODS:
+            processor = CAMProcessor(model, method=method)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            cam = processor.extract_activation_map(x, 0, mask)
+            seconds[method] = time.perf_counter() - t
+            if cam.shape != (size, size) or not np.all(np.isfinite(cam)) or cam.min() < 0 \
+                    or cam.max() > 1:
+                raise AssertionError(f'{method}: map {cam.shape}, {cam.min()}..{cam.max()}')
+            maps[method] = cam
+    channels = int(model.encode(torch.zeros(1, 3, 64, 64, device='cuda'))[processor.level]
+                   .shape[1])
+    del model
+    torch.cuda.empty_cache()
+    cpu_model, _ = load_model_bundle(model_dir, 'cpu')
+    cpu_gap = {}
+    for method in ('GradCAM', 'EigenCAM'):
+        cam = CAMProcessor(cpu_model, method=method).extract_activation_map(x, 0, mask)
+        cpu_gap[method] = float(np.abs(cam - maps[method]).max())
+        if not cpu_gap[method] <= CAM_GPU_ATOL:
+            raise AssertionError(f'{method}: card and CPU maps differ by {cpu_gap[method]}')
+    record = {'model': f'{manifest["architecture"]}/{manifest["encoder"]}', 'input_size': size,
+              'level': processor.level, 'level_channels': channels,
+              'ablation_chunks': math.ceil(channels / 32), 'seconds': seconds,
+              'map_max': {m: float(c.max()) for m, c in maps.items()},
+              'cpu_max_abs_delta': cpu_gap}
+    log(f'explain: {record["model"]} at {size}, level {processor.level} ({channels} channels, '
+        f'{record["ablation_chunks"]} ablation chunks); seconds per method '
+        f'{json.dumps({k: round(v, 3) for k, v in seconds.items()})}; CPU against card '
+        f'{json.dumps(cpu_gap)} (bound {CAM_GPU_ATOL})')
+    return record
+
+
 def main() -> int:
     import torch
 
@@ -1928,17 +2116,31 @@ def main() -> int:
         f'{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}')
     from octseg_torch.ops.kernels import _build
 
+    host = ('jpeg_entropy', 'contours', 'dataloader', 'lzw')
+
     def build(names):
-        # one compiler per source, all started together: nvcc for the CUDA
-        # kernels, g++ for the JPEG entropy decoder and the contour tracer
-        with ThreadPoolExecutor(len(names) + 2) as pool:
+        # one compiler per library, all started together: nvcc for the CUDA
+        # kernels, g++ for the JPEG entropy decoder, the contour tracer, the
+        # training loader and the LZW codec
+        zlib = {'zlib.h': subprocess.run(['g++', '-E', '-x', 'c++', '-'],
+                                         input='#include <zlib.h>\n', capture_output=True,
+                                         text=True).returncode == 0}
+        try:
+            import ctypes
+            ctypes.CDLL('libz.so.1')
+            zlib['libz.so.1'] = True
+        except OSError:
+            zlib['libz.so.1'] = False
+        log(f'zlib: {zlib} (the loader declares uncompress itself without the header and '
+            f'links libz.so.1 by name)')
+        with ThreadPoolExecutor(len(names) + len(host)) as pool:
             futures = [pool.submit(_build.load, name) for name in names]
-            futures += [pool.submit(_build.load_host, name) for name in ('jpeg_entropy',
-                                                                         'contours')]
+            futures += [pool.submit(_build.load_host, name) for name in host]
             for fut in futures:
                 fut.result()
+        return zlib
 
-    phases.run('build', build, ['postprocess', 'warp'])
+    zlib = phases.run('build', build, ['postprocess', 'warp'])
     k1 = phases.run('K1 vs plain', check_k1, torch)
     k2 = phases.run('K2 vs plain', check_k2, torch)
     tmp = tempfile.mkdtemp(prefix='octseg_torch_smoke_')
@@ -1955,6 +2157,9 @@ def main() -> int:
         logits = phases.run('logits GPU vs CPU', logits_gpu_vs_cpu, main)
         train = phases.run('training path', train_path, tmp)
         train_bf16 = phases.run('training path bf16', train_path, tmp, True)
+        train_python = phases.run('training path, Python loader', train_path, tmp, False,
+                                  False)
+        loaded = phases.run('native loader', native_loader_path, train)
         evaluated = phases.run('evaluate', evaluate_path, train)
         folds = phases.run('folds', folds_path, tmp)
         remat = phases.run('remat step', remat_step)
@@ -1964,6 +2169,9 @@ def main() -> int:
         zoo = phases.run('zoo predict', zoo_predict, tmp, main)
         zoo_steps = phases.run('zoo train steps', zoo_train_steps)
         tuned = phases.run('tune', tune_path, tmp)
+        infos = phases.run('model info', model_info_path)
+        configs = phases.run('get_configs', get_configs_path, tmp)
+        explained = phases.run('explain', explain_path, main)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     kernels = [{
@@ -1990,9 +2198,12 @@ def main() -> int:
         'route': 'cuda',
         'source': 'octseg_torch/csrc/warp.cu',
         'replaces': 'octseg/ops/pallas/resample.py:116',
-        'launches': (train['launches']['k2'] + folds['k2_launches'] + zoo_steps['k2_launches']
+        'launches': (train['launches']['k2'] + train_python['launches']['k2']
+                     + folds['k2_launches'] + zoo_steps['k2_launches']
                      + tuned['k2_launches'] + tuned['resume_k2_launches']),
-        'launches_by_path': {'train': train['launches']['k2'], 'folds': folds['k2_launches'],
+        'launches_by_path': {'train': train['launches']['k2'],
+                             'train, Python loader': train_python['launches']['k2'],
+                             'folds': folds['k2_launches'],
                              'zoo train steps': zoo_steps['k2_launches'],
                              'tune': tuned['k2_launches'] + tuned['resume_k2_launches']},
         'shape': k2['shape'],
@@ -2024,6 +2235,9 @@ def main() -> int:
                       'logits_gpu_vs_cpu': logits,
                       'training_path': train,
                       'training_path_bf16': train_bf16,
+                      'training_path_python_loader': train_python,
+                      'native_loader': loaded,
+                      'zlib': zlib,
                       'remat_step': remat,
                       'bf16_b7_step_memory': b7_memory,
                       'train_step_gpu_vs_cpu': step_gaps,
@@ -2032,7 +2246,10 @@ def main() -> int:
                                                           'k1_shapes', 'frames_per_s',
                                                           'models')},
                       'zoo_train_steps': zoo_steps,
-                      'tune': tuned}), flush=True)
+                      'tune': tuned,
+                      'model_info': infos,
+                      'get_configs': configs,
+                      'explain': explained}), flush=True)
     log(f'total {time.perf_counter() - phases.t0:.1f} s')
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -1,8 +1,10 @@
 """Minimal TIFF codec for N-channel uint8 segmentation masks.
 
-A copy of octseg/data/tiffio.py without its native LZW library (the port
-imports nothing of octseg, octseg.native included): the same subset, in
-pure Python and numpy.
+A copy of octseg/data/tiffio.py. LZW goes through the port's copy of
+octseg's C++ codec (``csrc/lzw.cc``, built with g++ at first use), as
+octseg's does; the Python codec below is its plain version, which the
+tests hold it to, and takes over where octseg's does: a decode without a
+known size, and a stream the C++ codec rejects.
 
 - read:  uint8, PlanarConfig=contig, any SamplesPerPixel, strips,
          compression None(1) / LZW(5) / Deflate(8, zip), predictor 1/2,
@@ -16,11 +18,14 @@ to octseg's.
 
 from __future__ import annotations
 
+import ctypes
 import struct
 import zlib
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+
+from octseg_torch.ops.kernels import _build
 
 # TIFF tag ids
 _IMAGE_WIDTH = 256
@@ -41,7 +46,37 @@ _TYPE_SIZES = {1: 1, 2: 1, 3: 2, 4: 4, 5: 8, 6: 1, 7: 1, 8: 2, 9: 4, 10: 8, 11: 
 _TYPE_FMT = {1: 'B', 3: 'H', 4: 'I', 6: 'b', 8: 'h', 9: 'i', 11: 'f', 12: 'd'}
 
 
-def lzw_decode(data: bytes) -> bytes:
+def _native_lzw() -> ctypes.CDLL:
+    lib = _build.load_host('lzw')
+    if not getattr(lib, '_configured', False):
+        for fn in (lib.octseg_lzw_encode, lib.octseg_lzw_decode):
+            fn.restype = ctypes.c_int64
+            fn.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64]
+        lib._configured = True
+    return lib
+
+
+def lzw_encode(data: bytes) -> bytes:
+    """TIFF-variant LZW encode in C++ (``csrc/lzw.cc``)."""
+    cap = len(data) + len(data) // 2 + 4096
+    buf = ctypes.create_string_buffer(cap)
+    n = _native_lzw().octseg_lzw_encode(data, len(data), buf, cap)
+    return buf.raw[:n] if n >= 0 else _lzw_encode(data)
+
+
+def lzw_decode(data: bytes, expected_size: Optional[int] = None) -> bytes:
+    """TIFF-variant LZW decode in C++ (``csrc/lzw.cc``) into at most
+    ``expected_size`` bytes; without a size, or where the stream holds more
+    or is malformed, the Python decoder's result, as in octseg."""
+    if expected_size is not None:
+        buf = ctypes.create_string_buffer(expected_size)
+        n = _native_lzw().octseg_lzw_decode(data, len(data), buf, expected_size)
+        if n >= 0:
+            return buf.raw[:n]
+    return _lzw_decode(data)
+
+
+def _lzw_decode(data: bytes) -> bytes:
     """Decode TIFF-variant LZW (MSB-first bit packing, early code change)."""
     CLEAR, EOI = 256, 257
     out = bytearray()
@@ -82,7 +117,7 @@ def lzw_decode(data: bytes) -> bytes:
     return bytes(out)
 
 
-def lzw_encode(data: bytes) -> bytes:
+def _lzw_encode(data: bytes) -> bytes:
     """Encode TIFF-variant LZW (MSB-first, early code change)."""
     CLEAR, EOI = 256, 257
     out = bytearray()
@@ -201,7 +236,7 @@ def read_tiff(path: str) -> np.ndarray:
             raw += chunk
         elif compression == 5:
             strip_cap = min(rows_per_strip * width * spp, total_expected - len(raw))
-            raw += lzw_decode(chunk)[:strip_cap]
+            raw += lzw_decode(chunk, strip_cap)[:strip_cap]
         elif compression in (8, 32946):
             raw += zlib.decompress(chunk)
         else:

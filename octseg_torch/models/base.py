@@ -5,11 +5,16 @@ channel per class in the order of the model's ``classes``. The head is SMP's
 ``segmentation_head.0`` conv (with bias, kernel 3 or 1), then, for a decoder
 that ends below full resolution, SMP's ``UpsamplingBilinear2d`` by
 ``upsampling`` (4 for FPN, PAN and DeepLabV3Plus, 8 for PSPNet and
-DeepLabV3): bilinear with ``align_corners=True`` through octseg's
-interpolation matrices.
+DeepLabV3): bilinear with ``align_corners=True``.
+
+``encode`` (the encoder's feature pyramid) and ``decode`` (decoder and head
+over a pyramid) are octseg's split: CAM explainability takes the gradient
+of a target with respect to one pyramid level through ``decode``.
 """
 
 from __future__ import annotations
+
+from typing import List
 
 import torch
 from torch import nn
@@ -28,7 +33,15 @@ class SegmentationModel(nn.Module):
         self.upsampling = upsampling
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.segmentation_head(self.decoder(self.encoder(x)))
+        return self.decode(self.encode(x))
+
+    def encode(self, x: torch.Tensor) -> List[torch.Tensor]:
+        """The feature pyramid alone."""
+        return self.encoder(x)
+
+    def decode(self, features: List[torch.Tensor]) -> torch.Tensor:
+        """Decoder and head over a (possibly perturbed) feature pyramid."""
+        y = self.segmentation_head(self.decoder(features))
         if self.upsampling > 1:
             h, w = y.shape[-2:]
             y = resize_bilinear_torch(y, (h * self.upsampling, w * self.upsampling),

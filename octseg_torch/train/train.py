@@ -12,9 +12,12 @@ tri-panel examples of ``{data_dir}/vis`` to ``images_per_epoch/``.
 ``bf16: true`` builds the model with bfloat16 compute (float32 parameters,
 optimizer state, BatchNorm statistics and loss; models/common.py) and
 ``remat: true`` checkpoints its blocks (models/remat.py), as octseg's keys
-do. Not ported: the JAX package's device mesh and its native C++ loader
-(ROADMAP.md, "Opt-in, last"); ``native_loader: true`` raises
-NotImplementedError.
+do. ``native_loader`` (configs/train.yaml: ``auto``) chooses the training
+batches' loader as in octseg: ``auto`` and ``true`` take the C++ loader
+(``train/native_loader.py``), ``false`` the Python one (``train/data.py``).
+Unlike octseg's ``auto``, nothing falls back: where the C++ loader cannot be
+built, training raises and names ``native_loader=false``. The summary's
+``loader`` says which one ran. Not ported: the JAX package's device mesh.
 
 Config: configs/train.yaml (the reference's keys).
 Usage: python -m octseg_torch.train.train data_dir=<fold> save_dir=<dir>
@@ -49,6 +52,7 @@ from octseg_torch.train import checkpoint as ckpt
 from octseg_torch.train.data import OCTDataset, PrefetchLoader
 from octseg_torch.train.losses import dice_loss_from_logits
 from octseg_torch.train.metrics import compute_metrics, save_metrics_on_epoch
+from octseg_torch.train.native_loader import NativeLoader
 from octseg_torch.train.state import TrainState, make_optimizer
 
 log = logging.getLogger(__name__)
@@ -184,9 +188,6 @@ def train_model(cfg: Config, model_dir: Optional[str] = None,
     device: None reads ``cfg.device`` (``auto``: the GPU, raising without
     one); ``'cpu'`` runs on the CPU."""
     device = octseg_torch.resolve_device(device if device is not None else cfg.get('device'))
-    if cfg.get('native_loader', 'auto') is True:
-        raise NotImplementedError('native_loader: true is not ported: the native C++ loader '
-                                  'is ROADMAP.md, "Opt-in, last"; use auto or false')
     classes = list(cfg.classes)
     model_name = cfg.get('model_name') or f'{cfg.architecture}_{cfg.encoder}'
     model_dir = model_dir or os.path.join(cfg.get('save_dir', 'models'), model_name)
@@ -216,8 +217,18 @@ def train_model(cfg: Config, model_dir: Optional[str] = None,
     eval_step = make_eval_step()
     generator = torch.Generator(device=device)
 
-    train_loader = PrefetchLoader(train_set, cfg.batch_size, shuffle=True, drop_last=True,
-                                  seed=seed)
+    native = cfg.get('native_loader', 'auto')
+    if native in (True, 'auto'):
+        try:
+            train_loader = NativeLoader(train_set, cfg.batch_size, shuffle=True, seed=seed)
+        except (RuntimeError, OSError) as e:   # g++ failed, or a library did not load
+            raise RuntimeError(f'native_loader={native}: the C++ training loader is '
+                               f'unavailable; native_loader=false trains through the '
+                               f'Python loader. {e}') from e
+        log.info('Using the native (C++) data loader')
+    else:
+        train_loader = PrefetchLoader(train_set, cfg.batch_size, shuffle=True,
+                                      drop_last=True, seed=seed)
     val_loader = PrefetchLoader(val_set, cfg.batch_size, shuffle=False, drop_last=False)
     if len(train_loader) == 0:
         raise ValueError(
@@ -304,7 +315,8 @@ def train_model(cfg: Config, model_dir: Optional[str] = None,
             log.info('Early termination requested at epoch %d', epoch)
             break
     summary.update(model_dir=model_dir, seconds=seconds, train_steps=steps,
-                   train_samples=steps * int(cfg.batch_size))
+                   train_samples=steps * int(cfg.batch_size),
+                   loader='native' if isinstance(train_loader, NativeLoader) else 'python')
     return summary
 
 

@@ -51,10 +51,11 @@ def test_tiff_round_trips_with_jax(tmp_path, compression, shape):
 
 @pytest.mark.parametrize('n', [0, 1, 300, 70000])
 def test_lzw_encoder_emits_the_jax_codes(n):
-    """The port keys its table by integers; the codes must be octseg's,
-    table resets (past 4094 entries) included."""
+    """The port's encoders (C++, and the Python one, which keys its table
+    by integers) emit octseg's codes, table resets (past 4094 entries)
+    included."""
     data = np.random.default_rng(n).integers(0, 5, n, dtype=np.uint8).tobytes()
-    assert tiffio.lzw_encode(data) == jax_tiffio._lzw_encode(data)
+    assert tiffio.lzw_encode(data) == tiffio._lzw_encode(data) == jax_tiffio._lzw_encode(data)
     assert tiffio.lzw_decode(tiffio.lzw_encode(data)) == data
 
 

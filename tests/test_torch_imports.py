@@ -4,8 +4,9 @@ The machine with the card has no jax, flax, optax, cv2, PIL, yaml or
 msgpack, and the port must not lean on the JAX package: a clean interpreter
 runs the port's CPU predict path on a tiny pullback and on an image
 directory (a PNG and a JPEG, bf16), a CPU training epoch (augmentation
-on) on a tiny synthetic fold, a DeepLabV3Plus forward (a dilated encoder)
-and a GP-EI suggestion of the tuner after three observations, and must not
+on, through the C++ loader) on a tiny synthetic fold, a DeepLabV3Plus forward
+(a dilated encoder), a GP-EI suggestion of the tuner after three
+observations, one NativeLoader batch and one GradCAM map, and must not
 have loaded any of them (nor sklearn, which octseg's tuner fits its GP
 with); an AST scan checks every import statement of the package and of
 chip_smoke.py.
@@ -70,6 +71,15 @@ search = BayesianSearch(space, seed=0, n_random=3)
 for value in (0.1, 0.5, 0.3):
     search.observe(search.suggest(), value)
 gp_point = search.suggest()
+# the C++ training loader and CAM explainability
+from octseg_torch.explain import CAMProcessor
+from octseg_torch.train.data import OCTDataset
+from octseg_torch.train.native_loader import NativeLoader
+native = next(iter(NativeLoader(OCTDataset(f'{tmp}/fold/train', ['Lumen'], 32), 2,
+                                num_workers=2)))
+x = np.random.default_rng(2).normal(0, 1, (32, 32, 3)).astype(np.float32)
+cam = CAMProcessor(create_model('Unet', 'resnet18').eval()).extract_activation_map(
+    x, 0, np.ones((32, 32), np.float32))
 banned = %r
 loaded = sorted(m for m in sys.modules if m.split('.')[0] in banned)
 print(json.dumps({'frames': result['frames'], 'outputs': sorted(os.listdir(f'{tmp}/out')),
@@ -78,6 +88,9 @@ print(json.dumps({'frames': result['frames'], 'outputs': sorted(os.listdir(f'{tm
                   'train_steps': summary['train_steps'],
                   'model_files': sorted(os.listdir(summary['model_dir'])),
                   'zoo_shape': list(zoo.shape), 'gp_point': gp_point,
+                  'loader': summary['loader'],
+                  'native_shapes': [list(a.shape) for a in native],
+                  'cam': [list(cam.shape), float(cam.min()), float(cam.max())],
                   'loaded': loaded}))
 ''' % (BANNED,)
 
@@ -101,6 +114,10 @@ def test_cpu_predict_path_loads_no_banned_module(tmp_path):
         result['model_files'])
     assert result['zoo_shape'] == [1, 1, 32, 32]
     assert result['gp_point']['architecture'] in ('FPN', 'PAN')
+    assert result['loader'] == 'native'
+    assert result['native_shapes'] == [[2, 32, 32, 3], [2, 32, 32, 1]]
+    shape, low, high = result['cam']
+    assert shape == [32, 32] and 0 <= low <= high <= 1
 
 
 def _python_files():

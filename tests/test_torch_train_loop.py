@@ -101,8 +101,14 @@ def test_augmented_run_resumes(setup):
     assert summary['epochs_done'] == 1 and summary['train_steps'] == 2
     _, rows = _rows(str(root / 'aug' / 'bf16'))
     assert rows and all(np.isfinite(float(r['Loss'])) for r in rows)
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        train_model(Config(dict(cfg, native_loader=True)), device='cpu')
+    assert first['loader'] == second['loader'] == summary['loader'] == 'python'
+    # native_loader: true trains through the C++ loader, with finite losses
+    summary = train_model(Config(dict(cfg, native_loader=True, resume=False, epochs=1,
+                                      model_name='native')), device='cpu')
+    assert summary['loader'] == 'native'
+    assert summary['epochs_done'] == 1 and summary['train_steps'] == 2
+    _, rows = _rows(str(root / 'aug' / 'native'))
+    assert rows and all(np.isfinite(float(r['Loss'])) for r in rows)
 
 
 def test_weights_load_in_the_jax_package(setup):
