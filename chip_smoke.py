@@ -119,11 +119,28 @@ Phases, each raising on failure (exit code != 0):
      all nine CAM methods (seconds each; AblationCAM over 2048 channels in
      64 chunks), GradCAM and EigenCAM on the CPU within CAM_GPU_ATOL of the
      card's maps;
- 14. one JSON line of kernels; last, the result line.
+ 14. analyze: the analyze app's ``get_analysis`` in inference mode on the card
+     over the 32-frame pullback with the softened winners: mask TIFFs equal
+     ``iter_pullback``'s except within 1e-4 of p = 0.5, a class with objects;
+     frames/s, seconds of inference and of the analysis, ms per
+     ``frame_contours`` and per figure (K1 launches none);
+ 15. app: the analyze app in process on 127.0.0.1:0, the pullback POSTed in
+     inference mode, every GET route 200 with its content type,
+     /contours.json equal to ``frame_contours``, a malformed upload 4xx and
+     the app serving afterwards; seconds per route;
+ 16. data prep: the port's pipeline runner over its stage file
+     (octseg_torch/pipeline.yaml) in a working directory of its own, from
+     DATA_PREP_STUDIES x DATA_PREP_FRAMES RGB DICOM frames at 704 px through
+     a Supervisely project (a polygon and a bitmap on every frame) to five CV
+     folds: the fold directories' file counts, the folds' metadata rows, a
+     second repro running no stage; seconds per stage;
+ 17. one JSON line of every phase's record (also written with the kernels to
+     the file the environment variable CHIP_SMOKE_RECORDS names, if set),
+     the card line again, one JSON line of kernels; last, the result line.
 
 Everything is written under a temporary directory that is removed at the
-end. Logs go to stderr; stdout carries the card line, the kernels line and
-the result line, which is last.
+end. Logs go to stderr; stdout carries the card line, the phases' records,
+the card line again, the kernels line and the result line, which is last.
 """
 
 from __future__ import annotations
@@ -2103,6 +2120,281 @@ def explain_path(main):
     return record
 
 
+# the data-prep phase's synthetic set: studies of RGB DICOM frames at the
+# main path's frame size (KFold over five folds needs five studies)
+DATA_PREP_STUDIES, DATA_PREP_FRAMES = 5, 13
+
+
+def analyze_path(tmp: str, main, models: str):
+    """The analyze app's analysis on the card: ``get_analysis`` in
+    inference mode over the 32-frame main-path pullback with the softened
+    winners (fp32, the engine's own block size). Its mask TIFFs must equal
+    ``iter_pullback``'s masks from the same models on the same normalised
+    frames except where a probability is within 1e-4 of 0.5, and a class
+    must hold objects. Records frames/s of the whole analysis, seconds of
+    inference and of the rest, ms per ``frame_contours`` and per figure, and
+    K1's launches (the analysis runs none)."""
+    import numpy as np
+
+    from octseg_torch.analyze import analysis, figures
+    from octseg_torch.core.registry import CLASS_IDS
+    from octseg_torch.data import dicom
+    from octseg_torch.data.image import normalize_slice
+    from octseg_torch.data.tiffio import read_tiff
+    from octseg_torch.infer.engine import InferenceEngine, fp32_exact
+    from octseg_torch.ops.kernels import postprocess as k1
+
+    classes = list(CLASS_IDS)
+    inference_s = [0.0]
+    run_inference = analysis._run_inference_into
+
+    def timed(*args, **kwargs):
+        t = time.perf_counter()
+        run_inference(*args, **kwargs)
+        inference_s[0] += time.perf_counter() - t
+
+    analysis._run_inference_into = timed
+    try:
+        k1.launches = 0
+        t = time.perf_counter()
+        data = analysis.get_analysis(main['dcm'], 'inference', models_dir=models,
+                                     classes=classes, temp_root=os.path.join(tmp, 'analyze'),
+                                     device='cuda')
+        total = time.perf_counter() - t
+        launches = k1.launches
+    finally:
+        analysis._run_inference_into = run_inference
+    n = len(data['images'])
+    frames = dicom.dcmread(main['dcm']).pixel_array
+    if n != frames.shape[0]:
+        raise AssertionError(f'the analysis holds {n} frames of {frames.shape[0]}')
+    h, w = frames.shape[1:3]
+    norm = np.stack([normalize_slice(f) for f in frames])[..., None]
+    engine = InferenceEngine(models, classes, device='cuda')
+    want = np.zeros((n, h, w, 4), np.float32)
+    near = np.zeros_like(want, bool)
+    with fp32_exact():
+        for start, block in engine.iter_pullback(norm, [h, w]):
+            want[start:start + block.shape[0]] = block
+        for name, routes in engine._ensemble_plan().items():
+            p = probabilities(engine, name, norm, (h, w))
+            for _cls, ch, mask_ch in routes:
+                near[..., mask_ch] = np.abs(p[:, ch] - 0.5) < 1e-4
+    masks = np.stack([read_tiff(os.path.join(data['work_dir'], 'mask', f'{name}.tiff'))
+                      for name in data['images']])
+    differ = masks != (want * 255).astype(np.uint8)
+    if (differ & ~near).any():
+        raise AssertionError('the analysis masks differ from iter_pullback away from p = 0.5')
+    rows = {c: len(o['slice']) for c, o in data['objects'].items()}
+    if not any(rows.values()):
+        raise AssertionError('no class holds an object in the analysis')
+    t = time.perf_counter()
+    polygons = sum(len(o['polygons']) for num in range(n)
+                   for o in analysis.frame_contours(data, num)['objects'])
+    contours_ms = 1e3 * (time.perf_counter() - t) / n
+    figure_ms = {}
+    for label, fn in (('object_map', lambda: figures.get_object_map(data)),
+                      ('trace_area', lambda: figures.get_trace_area(classes, data)),
+                      ('plot_area', lambda: figures.get_plot_area(classes, data)),
+                      ('img_show', lambda: figures.get_img_show(
+                          data, os.path.join(data['work_dir'], 'img'), n // 2))):
+        t = time.perf_counter()
+        fn()
+        figure_ms[label] = 1e3 * (time.perf_counter() - t)
+    record = {'frames': n, 'frames_per_s': n / total, 'total_s': total,
+              'inference_s': inference_s[0], 'analysis_s': total - inference_s[0],
+              'frame_contours_ms': contours_ms, 'polygons': polygons, 'figure_ms': figure_ms,
+              'rows_per_class': rows, 'differing_px': int(differ.sum()),
+              'near_half_px': int(near.sum()), 'k1_launches': launches}
+    log(f'analyze: {n} frames in {total:.3f} s ({n / total:.2f} frames/s), inference '
+        f'{inference_s[0]:.3f} s, analysis {total - inference_s[0]:.3f} s; rows per class '
+        f'{rows}; masks equal iter_pullback but {record["differing_px"]} px '
+        f'({record["near_half_px"]} within 1e-4 of p = 0.5); frame_contours '
+        f'{contours_ms:.2f} ms per frame ({polygons} polygons); figures ms '
+        f'{json.dumps({k: round(v, 2) for k, v in figure_ms.items()})}; {launches} K1 launches')
+    return record
+
+
+def app_path(tmp: str, main, models: str):
+    """The port's analyze app in process on 127.0.0.1 with port 0: the
+    main-path pullback POSTed in inference mode on the card, then every GET
+    route answers 200 with its content type, /contours.json equals
+    ``frame_contours`` of the session, a malformed upload gets a 4xx and the
+    app answers afterwards. Records the seconds of each route."""
+    import urllib.error
+    import urllib.request
+
+    from octseg_torch.analyze import app
+    from octseg_torch.analyze.analysis import frame_contours
+    from octseg_torch.core.config import load_config
+
+    cfg = load_config('app', ['host=127.0.0.1', 'port=0', f'models_dir={models}',
+                              f'temp_dir={os.path.join(tmp, "app_temp")}',
+                              f'demo_dir={os.path.join(tmp, "no_demo")}', 'device=cuda'])
+    server = app.serve(cfg, block=False)
+    url = 'http://%s:%d' % server.server_address[:2]
+    seconds = {}
+
+    def call(route, body=None, label=''):
+        req = urllib.request.Request(url + route, data=body,
+                                     method='POST' if body is not None else 'GET')
+        t = time.perf_counter()
+        try:
+            with urllib.request.urlopen(req, timeout=600) as resp:
+                out = resp.status, resp.headers['Content-Type'], resp.read()
+        except urllib.error.HTTPError as e:
+            out = e.code, e.headers['Content-Type'], e.read()
+        seconds[route.split('?')[0] + label] = time.perf_counter() - t
+        return out
+
+    try:
+        with open(main['dcm'], 'rb') as f:
+            status, ctype, body = call('/analyze?mode=inference', f.read(), ' (POST)')
+        if status != 200:
+            raise AssertionError(f'POST /analyze: {status} {body[:300]!r}')
+        info = json.loads(body)
+        sid, n = info['sid'], info['n_frames']
+        data = server.app_state.get(sid)
+        num = n // 2
+        routes = {'/': 'text/html', f'/object_map.svg?sid={sid}': 'image/svg+xml',
+                  f'/trace_area.svg?sid={sid}': 'image/svg+xml',
+                  f'/plot_area.svg?sid={sid}': 'image/svg+xml',
+                  f'/contours.json?sid={sid}&num={num}': 'application/json',
+                  f'/base_frame.png?sid={sid}&num={num}': 'image/png',
+                  f'/frame.png?sid={sid}&num={num}&opacity=30': 'image/png',
+                  f'/metadata.json?sid={sid}': 'application/json'}
+        for route, want in routes.items():
+            status, ctype, body = call(route)
+            if (status, ctype) != (200, want):
+                raise AssertionError(f'GET {route}: {status} {ctype}')
+            if route.startswith('/contours.json') and json.loads(body) != json.loads(
+                    json.dumps(frame_contours(data, num))):
+                raise AssertionError('/contours.json differs from frame_contours')
+        bad, _, _ = call('/analyze?mode=inference', b'\x00garbage\xff' * 100,
+                         ' (POST, malformed)')
+        if not 400 <= bad < 500:
+            raise AssertionError(f'a malformed upload got {bad}')
+        after, _, _ = call('/', label=' (after)')
+        if after != 200:
+            raise AssertionError(f'the app answered {after} after the malformed upload')
+    finally:
+        server.shutdown()
+        server.server_close()
+    record = {'frames': n, 'malformed_upload_status': bad, 'seconds': seconds}
+    log(f'app: POST of {n} frames and {len(routes)} routes answered; malformed upload '
+        f'{bad}; seconds per route {json.dumps({k: round(v, 3) for k, v in seconds.items()})}')
+    return record
+
+
+def make_sly_project(work: str, seed: int) -> None:
+    """A Supervisely project (``data/sly_output``) over the stacked frames
+    of ``data/sly_input``: each series' frames linked into
+    ``frames/<study>_<series>.mp4/``, and on every frame a polygon and a
+    bitmap in the left (RGB) panel, classes in turn."""
+    import numpy as np
+
+    from octseg_torch.data.utils import convert_numpy_to_base64
+
+    rng = np.random.default_rng(seed)
+    classes = ['Lumen', 'Fibrous cap', 'Lipid core', 'Vasa vasorum']
+    stacked = os.path.join(work, 'data', 'sly_input')
+    for study in sorted(os.listdir(stacked)):
+        for series in sorted(os.listdir(os.path.join(stacked, study))):
+            name = f'{study}_{series}.mp4'
+            ds = os.path.join(work, 'data', 'sly_output', study)
+            os.makedirs(os.path.join(ds, 'ann'), exist_ok=True)
+            frames_dir = os.path.join(ds, 'frames', name)
+            os.makedirs(frames_dir)
+            src = os.path.join(stacked, study, series)
+            pngs = sorted(os.listdir(src))
+            for i, png in enumerate(pngs, 1):
+                os.link(os.path.join(src, png), os.path.join(frames_dir, f'{i:03d}.png'))
+            h, w = png_size(os.path.join(src, pngs[0]))[::-1]
+            objects, frames = [], []
+            for fi in range(len(pngs)):
+                cx, cy = rng.integers(250, 750, 2)
+                ang = np.sort(rng.uniform(0, 2 * np.pi, 24))
+                r = rng.uniform(60, 160, 24)
+                poly = np.stack([cx + r * np.cos(ang), cy + r * np.sin(ang)], 1).astype(int)
+                yy, xx = np.mgrid[:120, :160]
+                blob = ((yy - 60) ** 2 / 55 ** 2 + (xx - 80) ** 2 / 75 ** 2) < 1
+                blob &= rng.random(blob.shape) > 0.02
+                keys = (f'p{fi}', f'b{fi}')
+                objects += [{'key': keys[0], 'classTitle': classes[fi % 4]},
+                            {'key': keys[1], 'classTitle': classes[(fi + 1) % 4]}]
+                frames.append({'index': fi, 'figures': [
+                    {'objectKey': keys[0], 'geometryType': 'polygon',
+                     'geometry': {'points': {'exterior': poly.tolist(), 'interior': []}}},
+                    {'objectKey': keys[1], 'geometryType': 'bitmap',
+                     'geometry': {'bitmap': {'origin': [int(rng.integers(100, 800)),
+                                                        int(rng.integers(100, 800))],
+                                             'data': convert_numpy_to_base64(blob)}}}]})
+            with open(os.path.join(ds, 'ann', f'{name}.json'), 'w') as f:
+                json.dump({'framesCount': len(pngs), 'size': {'height': h, 'width': w},
+                           'objects': objects, 'frames': frames}, f)
+
+
+def data_prep_path(tmp: str):
+    """The data-prep chain through the port's pipeline runner and its stage
+    file (``octseg_torch/pipeline.yaml``, configs unchanged), in a working
+    directory of its own: DATA_PREP_STUDIES studies of DATA_PREP_FRAMES
+    RGB DICOM frames at MAIN_FRAME_PX, the four stages up to stack_images,
+    then a Supervisely project with a polygon and a bitmap on every frame,
+    then the rest, to configs/convert_int_to_cv.yaml's five folds. Checks
+    the fold directories and their file counts, and that a second repro
+    runs no stage. Records the seconds of each stage."""
+    import numpy as np
+
+    from octseg_torch.core.pipeline import Pipeline
+    from octseg_torch.data import dicom
+
+    work = os.path.join(tmp, 'data_prep')
+    rng = np.random.default_rng(5)
+    for s in range(1, DATA_PREP_STUDIES + 1):
+        frames = np.stack([np.repeat(f[..., None], 3, axis=-1) for f in synthetic_pullback(
+            DATA_PREP_FRAMES, MAIN_FRAME_PX, s)])
+        frames[..., 0] = np.clip(frames[..., 0].astype(int) + rng.integers(0, 40), 0, 255)
+        dicom.dcmwrite(os.path.join(work, 'data', 'dcm', f'{s:03d}', f'IMG{s:03d}'), frames,
+                       tags={'AcquisitionDate': '20240115', 'AcquisitionTime': '101500.000000'})
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        first = Pipeline()
+        ran = first.repro(['extract_metadata', 'stack_images'])
+        make_sly_project(work, 6)
+        rest = Pipeline()
+        ran += rest.repro()
+        again = Pipeline().repro()
+    finally:
+        os.chdir(cwd)
+    seconds = dict(first.seconds, **rest.seconds)
+    if sorted(ran) != sorted(first.stages) or again:
+        raise AssertionError(f'stages run {ran}, then {again}')
+    n = DATA_PREP_STUDIES * DATA_PREP_FRAMES
+    cv = os.path.join(work, 'data', 'cv')
+    counts = {}
+    for k in range(1, 6):
+        for subset in ('train', 'test'):
+            for kind in ('img', 'mask', 'mask_color'):
+                counts[f'fold_{k}/{subset}/{kind}'] = len(os.listdir(
+                    os.path.join(cv, f'fold_{k}', subset, kind)))
+        per_fold = [counts[f'fold_{k}/{s}/{kind}'] for s in ('train', 'test')
+                    for kind in ('img', 'mask', 'mask_color')]
+        if per_fold != [n - DATA_PREP_FRAMES] * 3 + [DATA_PREP_FRAMES] * 3:
+            raise AssertionError(f'fold_{k}: {per_fold} files')
+    with open(os.path.join(cv, 'metadata.csv')) as f:
+        rows = sum(1 for _ in f) - 1
+    if rows != 5 * 2 * n:   # two objects a frame, every frame in each fold
+        raise AssertionError(f'{rows} rows in the folds\' metadata.csv')
+    record = {'studies': DATA_PREP_STUDIES, 'frames': n, 'stage_seconds': seconds,
+              'total_s': sum(seconds.values()), 'fold_files': counts, 'metadata_rows': rows}
+    log(f'data prep: {n} frames of {MAIN_FRAME_PX} px in {DATA_PREP_STUDIES} studies to 5 '
+        f'folds in {record["total_s"]:.1f} s; seconds per stage '
+        f'{json.dumps({k: round(v, 2) for k, v in seconds.items()})}; a second repro ran '
+        f'no stage')
+    return record
+
+
 def main() -> int:
     import torch
 
@@ -2111,7 +2403,8 @@ def main() -> int:
         return 2
     sys.path.insert(0, REPO)
     phases = Phases()
-    print(card_line(), flush=True)
+    card = card_line()
+    print(card, flush=True)
     log(f'torch {torch.__version__}, CUDA {torch.version.cuda}, '
         f'{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}')
     from octseg_torch.ops.kernels import _build
@@ -2172,6 +2465,9 @@ def main() -> int:
         infos = phases.run('model info', model_info_path)
         configs = phases.run('get_configs', get_configs_path, tmp)
         explained = phases.run('explain', explain_path, main)
+        analyzed = phases.run('analyze', analyze_path, tmp, main, os.path.join(tmp, 'soft'))
+        app_record = phases.run('app', app_path, tmp, main, os.path.join(tmp, 'soft'))
+        prepared = phases.run('data prep', data_prep_path, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     kernels = [{
@@ -2181,7 +2477,7 @@ def main() -> int:
         'replaces': 'octseg/ops/pallas/postprocess.py:149',
         'launches': main['launches'] + served['k1_launches'] + zoo['launches'],
         'launches_by_path': {'predict': main['launches'], 'serve client': served['k1_launches'],
-                             'zoo predict': zoo['launches']},
+                             'zoo predict': zoo['launches'], 'analyze': analyzed['k1_launches']},
         'shape': k1['shape'],
         'max_abs_err': k1['max_abs_err'],
         'ring_exact': k1['ring_exact'],
@@ -2218,38 +2514,51 @@ def main() -> int:
         # the tune and zoo train steps' shape, which takes the general path
         **{k: v for k, v in k2.items() if k.endswith('_2x896x896x3x1')},
     }]
-    print(json.dumps({'kernels': kernels,
-                      'predict_path': {k: main[k] for k in (
-                          'frames', 'seconds', 'chunks', 'k1_shapes', 'positive_share',
-                          'peak_allocated_bytes')},
-                      'jpeg_decode': jpeg,
-                      'jpeg_pullback_predict': jpeg_predict,
-                      'image_directory_predict': images,
-                      'block_memory': memory,
-                      'block_memory_bf16': memory_bf16,
-                      'bf16_predict': bf16,
-                      'serve': served,
-                      'evaluate': evaluated,
-                      'folds': folds,
-                      'routing_near_half_share': share,
-                      'logits_gpu_vs_cpu': logits,
-                      'training_path': train,
-                      'training_path_bf16': train_bf16,
-                      'training_path_python_loader': train_python,
-                      'native_loader': loaded,
-                      'zlib': zlib,
-                      'remat_step': remat,
-                      'bf16_b7_step_memory': b7_memory,
-                      'train_step_gpu_vs_cpu': step_gaps,
-                      'zoo_logits_gpu_vs_cpu': zoo_logits,
-                      'zoo_predict': {k: zoo[k] for k in ('frames', 'seconds', 'chunks',
-                                                          'k1_shapes', 'frames_per_s',
-                                                          'models')},
-                      'zoo_train_steps': zoo_steps,
-                      'tune': tuned,
-                      'model_info': infos,
-                      'get_configs': configs,
-                      'explain': explained}), flush=True)
+    records = {'predict_path': {k: main[k] for k in (
+                   'frames', 'seconds', 'chunks', 'k1_shapes', 'positive_share',
+                   'peak_allocated_bytes')},
+               'jpeg_decode': jpeg,
+               'jpeg_pullback_predict': jpeg_predict,
+               'image_directory_predict': images,
+               'block_memory': memory,
+               'block_memory_bf16': memory_bf16,
+               'bf16_predict': bf16,
+               'serve': served,
+               'evaluate': evaluated,
+               'folds': folds,
+               'routing_near_half_share': share,
+               'logits_gpu_vs_cpu': logits,
+               'training_path': train,
+               'training_path_bf16': train_bf16,
+               'training_path_python_loader': train_python,
+               'native_loader': loaded,
+               'zlib': zlib,
+               'remat_step': remat,
+               'bf16_b7_step_memory': b7_memory,
+               'train_step_gpu_vs_cpu': step_gaps,
+               'zoo_logits_gpu_vs_cpu': zoo_logits,
+               'zoo_predict': {k: zoo[k] for k in ('frames', 'seconds', 'chunks',
+                                                   'k1_shapes', 'frames_per_s',
+                                                   'models')},
+               'zoo_train_steps': zoo_steps,
+               'tune': tuned,
+               'model_info': infos,
+               'get_configs': configs,
+               'explain': explained,
+               'analyze': analyzed,
+               'app': app_record,
+               'data_prep': prepared}
+    # every phase's record on a line of its own, before the card line, the
+    # kernels line and the result line (a reader that keeps only the end of
+    # the output still has those), and in the file CHIP_SMOKE_RECORDS names
+    path = os.environ.get('CHIP_SMOKE_RECORDS')
+    if path:
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        with open(path, 'w') as f:
+            json.dump({'card': card, 'kernels': kernels, 'phases': records}, f)
+    print(json.dumps({'phases': records}), flush=True)
+    print(card, flush=True)
+    print(json.dumps({'kernels': kernels}), flush=True)
     log(f'total {time.perf_counter() - phases.t0:.1f} s')
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

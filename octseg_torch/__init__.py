@@ -4,12 +4,17 @@ Mirrors the module layout of the JAX package ``octseg`` (its reference),
 module for module. At runtime it imports torch, numpy and the standard
 library only. Entry points run on ``cuda`` unless the caller passes
 ``device='cpu'``; without a GPU and without that request they raise.
+Importing the package does not import torch: the host-only entry points
+(the data-prep chain) start without it.
 """
 
-import os
-from typing import List
+from __future__ import annotations
 
-import torch
+import os
+from typing import TYPE_CHECKING, List
+
+if TYPE_CHECKING:
+    import torch
 
 __version__ = '0.1.0'
 
@@ -27,6 +32,8 @@ def project_path(path: str) -> str:
 def resolve_device(device=None) -> torch.device:
     """``None`` / ``'auto'`` / ``'cuda'`` -> the GPU, raising when there is
     none; ``'cpu'`` (what the tests pass) -> the CPU."""
+    import torch
+
     if device is None or str(device) == 'auto':
         device = 'cuda'
     device = torch.device(device)
@@ -41,6 +48,8 @@ def device_pool(device=None) -> List[torch.device]:
     """The devices independent jobs (folds, tuning trials) may take, one
     each: every CUDA device for ``None``, ``'auto'`` or ``'cuda'``, else the
     one device named (``resolve_device``'s rules)."""
+    import torch
+
     device = resolve_device(device)
     if device.type == 'cuda' and device.index is None:
         return [torch.device('cuda', i) for i in range(torch.cuda.device_count())]

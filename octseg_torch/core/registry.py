@@ -18,3 +18,5 @@ CLASS_COLORS_RGB = {name: tuple(info['color']) for name, info in CLASS_MAP.items
 CLASS_COLORS_BGR = {name: tuple(info['color'][::-1]) for name, info in CLASS_MAP.items()}
 
 CLASS_IDS = {name: info['id'] for name, info in CLASS_MAP.items()}
+
+CLASS_IDS_REVERSED = {v: k for k, v in CLASS_IDS.items()}

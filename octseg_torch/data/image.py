@@ -11,7 +11,8 @@
   round trip), NEAREST in Pillow's coordinates for P.
 - ``paste_solid``: ``Image.paste(solid colour image, (0, 0), L mask)``,
   Pillow's integer blend DIV255(in1 * (255 - a) + in2 * a).
-- ``write_png``: an 8-bit gray or RGB PNG through zlib.
+- ``encode_png``: an 8-bit gray, RGB or RGBA PNG through zlib;
+  ``write_png`` writes a gray or RGB one.
 - ``normalize_slice``: cv2.normalize(NORM_MINMAX, CV_8U).
 - ``read_png``: ``cv2.imread(path)`` (IMREAD_COLOR) of any PNG (every
   colour type and bit depth, interlaced or not; alpha dropped) or JPEG
@@ -32,7 +33,6 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 
 from octseg_torch.data.jpeg import ROADMAP_ITEM, decode_jpeg
-from octseg_torch.ops.resize import nearest_indices
 
 _PRECISION_BITS = 32 - 8 - 2
 
@@ -113,20 +113,29 @@ def _png_chunk(tag: bytes, data: bytes) -> bytes:
     return struct.pack('>I', len(data)) + tag + data + struct.pack('>I', crc)
 
 
-def write_png(path: str, arr: np.ndarray) -> None:
-    """Write uint8 (H, W) gray or (H, W, 3) RGB as a PNG (filter type 0,
-    zlib level 6 as Pillow's default)."""
+def encode_png(arr: np.ndarray, level: int = 6) -> bytes:
+    """An 8-bit PNG of uint8 (H, W) gray, (H, W, 3) RGB or (H, W, 4) RGBA
+    (filter type 0; zlib ``level`` 6 as Pillow's default, 1 as cv2's)."""
+    if arr.dtype != np.uint8 or arr.ndim not in (2, 3) or (
+            arr.ndim == 3 and arr.shape[2] not in (3, 4)):
+        raise ValueError(f'encode_png takes uint8 (H, W), (H, W, 3) or (H, W, 4), got '
+                         f'{arr.dtype} {arr.shape}')
+    h, w = arr.shape[:2]
+    color_type = 0 if arr.ndim == 2 else (2 if arr.shape[2] == 3 else 6)
+    rows = np.ascontiguousarray(arr).reshape(h, -1)
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), rows], axis=1).tobytes()
+    ihdr = struct.pack('>IIBBBBB', w, h, 8, color_type, 0, 0, 0)
+    return (b'\x89PNG\r\n\x1a\n' + _png_chunk(b'IHDR', ihdr)
+            + _png_chunk(b'IDAT', zlib.compress(raw, level)) + _png_chunk(b'IEND', b''))
+
+
+def write_png(path: str, arr: np.ndarray, level: int = 6) -> None:
+    """Write uint8 (H, W) gray or (H, W, 3) RGB as a PNG (``encode_png``)."""
     if arr.dtype != np.uint8 or arr.ndim not in (2, 3) or (
             arr.ndim == 3 and arr.shape[2] != 3):
         raise ValueError(f'write_png takes uint8 (H, W) or (H, W, 3), got '
                          f'{arr.dtype} {arr.shape}')
-    h, w = arr.shape[:2]
-    color_type = 2 if arr.ndim == 3 else 0
-    rows = np.ascontiguousarray(arr).reshape(h, -1)
-    raw = np.concatenate([np.zeros((h, 1), np.uint8), rows], axis=1).tobytes()
-    ihdr = struct.pack('>IIBBBBB', w, h, 8, color_type, 0, 0, 0)
-    data = (b'\x89PNG\r\n\x1a\n' + _png_chunk(b'IHDR', ihdr)
-            + _png_chunk(b'IDAT', zlib.compress(raw, 6)) + _png_chunk(b'IEND', b''))
+    data = encode_png(arr, level)
     with open(path, 'wb') as f:
         f.write(data)
 
@@ -175,6 +184,8 @@ def _unfilter(ftype: np.ndarray, data: np.ndarray) -> np.ndarray:
     Block 0, block 1 and row 0 of every block are the zero border the
     filters assume."""
     h, w, bpp = data.shape
+    if not ftype.any():   # every row unfiltered (what encode_png writes)
+        return data
     ys = np.arange(h)[:, None]
     diag = np.arange(w)[None, :] + ys
     raw = np.zeros((w + h - 1, h, bpp), np.int16)
@@ -459,6 +470,14 @@ def resize_linear_u8(img: np.ndarray, size: Sequence[int]) -> np.ndarray:
     b1 = b1.reshape(-1, 1, *extra)
     v = ((b0 * rows[ys0]) >> 16) + ((b1 * rows[ys1]) >> 16)
     return ((v + 2) >> 2).astype(np.uint8)
+
+
+def nearest_indices(out_size: int, in_size: int) -> np.ndarray:
+    """cv2 resizeNN source index per output index, bit-exact: the scale is
+    the double-rounded reciprocal 1.0 / (out / in), in float64."""
+    scale = 1.0 / (out_size / in_size)
+    idx = np.floor(np.arange(out_size, dtype=np.float64) * scale).astype(np.int64)
+    return np.clip(idx, 0, in_size - 1)
 
 
 def resize_nearest_u8(img: np.ndarray, size: Sequence[int]) -> np.ndarray:

@@ -1,6 +1,15 @@
-"""Inference input and output on the host (the port of octseg/data/utils.py:
-``get_file_list``, ``get_dir_list``, ``preprocessing_img``,
-``data_processing`` and ``save_results``).
+"""Host data helpers (the port of octseg/data/utils.py: ``get_file_list``,
+``get_dir_list``, ``convert_to_grayscale``, ``get_study_name``,
+``get_series_name``, ``convert_base64_to_numpy``,
+``convert_numpy_to_base64``, ``preprocessing_img``, ``data_processing`` and
+``save_results``).
+
+``convert_to_grayscale`` is cv2's RGB -> gray, clip and ``equalizeHist``
+(data/draw.py). The base64 helpers are Supervisely's bitmaps: a PNG, zlib
+compressed, base64 encoded; decoding takes the forms
+``cv2.imdecode(IMREAD_UNCHANGED)`` gives as gray or four channels (gray,
+gray + alpha and RGBA PNGs at 8 or 16 bits; the mask is the alpha channel
+where there is one), encoding writes an RGBA PNG of the port's own bytes.
 
 ``data_processing`` reads a directory of PNG and JPEG files as octseg does
 through ``PIL.Image.open(p).resize(...)`` (data/image.py: ``open_image`` and
@@ -19,23 +28,25 @@ ring alpha = uint8(ring * 255 * 0.85 * 255).
 
 from __future__ import annotations
 
+import base64
 import logging
 import os
+import zlib
 from concurrent.futures import ThreadPoolExecutor
 from glob import glob
 from pathlib import Path
-from typing import List, Optional, Sequence, Tuple, Union
+from typing import TYPE_CHECKING, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
-import torch
 
 import octseg_torch
 from octseg_torch.core.registry import CLASS_COLORS_RGB, CLASS_IDS
-from octseg_torch.data.image import (PilImage, open_image, paste_solid, pil_resize,
-                                     resize_linear_u8, write_png)
-from octseg_torch.ops.kernels.postprocess import fused_overlay_postprocess
-# the kernel's plain version, counterpart of octseg.data.utils._postprocess_chain
-from octseg_torch.ops.kernels.postprocess import postprocess_chain as _postprocess_chain  # noqa: F401
+from octseg_torch.data.draw import equalize_hist, rgb_to_gray
+from octseg_torch.data.image import (PilImage, _decode_png, encode_png, open_image, paste_solid,
+                                     pil_resize, resize_linear_u8, write_png)
+
+if TYPE_CHECKING:
+    import torch
 
 
 def get_file_list(src_dirs: Union[List[str], str], ext_list: Union[List[str], str],
@@ -72,6 +83,52 @@ def get_dir_list(data_dir: str, include_dirs: Optional[List[str]] = None,
     return dir_list
 
 
+def convert_to_grayscale(img_src: np.ndarray, min_limit: int = 40, max_limit: int = 220
+                         ) -> np.ndarray:
+    """RGB uint8 -> gray, below ``min_limit`` to 0 and above ``max_limit``
+    to 255, histogram equalised, replicated to three channels (an
+    annotation display aid)."""
+    img = rgb_to_gray(img_src)
+    img[img < min_limit] = 0
+    img[img > max_limit] = 255
+    img = equalize_hist(img)
+    return np.repeat(img[..., None], 3, axis=-1)
+
+
+def get_study_name(dcm_path: str) -> str:
+    """The DICOM's directory name."""
+    return Path(dcm_path).parts[-2]
+
+
+def get_series_name(dcm_path: str) -> str:
+    """The series number of a DICOM named ``IMG<n>``, as a string
+    without leading zeros (ValueError for other names)."""
+    return str(int(Path(dcm_path).name.replace('IMG', '')))
+
+
+def convert_base64_to_numpy(s: str) -> np.ndarray:
+    """A Supervisely bitmap (base64 of zlib of a PNG) -> bool mask: the
+    alpha channel of a four-channel image, or the gray values."""
+    png = zlib.decompress(base64.b64decode(s))
+    samples, color, _depth, _plte = _decode_png(png, '<bitmap>')
+    if color in (4, 6):   # gray + alpha and RGBA: cv2 gives four channels
+        return samples[..., -1].astype(bool)
+    if color == 0:
+        return samples[..., 0].astype(bool)
+    if color == 3:
+        # cv2 expands a palette to three channels, or four with tRNS
+        raise NotImplementedError('palette PNG bitmaps are not read by octseg_torch')
+    raise RuntimeError('Wrong internal mask format')
+
+
+def convert_numpy_to_base64(mask: np.ndarray) -> str:
+    """The inverse of ``convert_base64_to_numpy``: an RGBA PNG of the mask
+    at 0/255 in every channel, zlib compressed, base64 encoded."""
+    m = mask.astype(np.uint8) * 255
+    png = encode_png(np.dstack([m, m, m, m]), level=1)   # cv2.imencode's default
+    return base64.b64encode(zlib.compress(png)).decode('ascii')
+
+
 def preprocessing_img(img: PilImage, input_size: int) -> np.ndarray:
     """The model input of one image: ``np.array(img)`` (palette indices for
     P), ``cv2.cvtColor(RGB2BGR)`` (three channels reversed, alpha dropped,
@@ -101,9 +158,21 @@ def data_processing(data_path: str, save_dir: str, output_size: Sequence[int]
     return images, masks, image_names
 
 
+def __getattr__(name: str):
+    # torch loads only where the postprocess runs (the data-prep entry
+    # points start without it); ``_postprocess_chain`` is the kernel's
+    # plain version, counterpart of octseg.data.utils._postprocess_chain
+    if name == '_postprocess_chain':
+        from octseg_torch.ops.kernels.postprocess import postprocess_chain
+        return postprocess_chain
+    raise AttributeError(f'module {__name__!r} has no attribute {name!r}')
+
+
 def postprocess_masks(m: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(fill, ring) for stacked binary masks (M, H, W) float32: the CUDA
     kernel for a CUDA tensor, the plain chain for a CPU tensor."""
+    from octseg_torch.ops.kernels.postprocess import fused_overlay_postprocess
+
     return fused_overlay_postprocess(m)
 
 
@@ -137,6 +206,8 @@ def save_results(images: Sequence[np.ndarray], masks: Sequence[np.ndarray],
     see ``octseg_torch.resolve_device``). Frames are
     composited and encoded on a thread pool (zlib and numpy release the
     interpreter lock)."""
+    import torch
+
     device = octseg_torch.resolve_device(device)
     os.makedirs(save_dir, exist_ok=True)
     if len(images) == 0:

@@ -25,6 +25,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from octseg_torch.data.image import nearest_indices  # cv2's resizeNN index, numpy
+
 
 # XLA on the CPU evaluates the sample position (i + 0.5) * inv - 0.5 with one
 # rounding (a fused multiply-add) on an axis of this many outputs or more,
@@ -77,14 +79,6 @@ def resize_bilinear(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
         x = x[None]
     out = resize_bilinear_nchw(x.permute(0, 3, 1, 2), size).permute(0, 2, 3, 1)
     return out[0] if squeeze else out
-
-
-def nearest_indices(out_size: int, in_size: int) -> np.ndarray:
-    """cv2 resizeNN source index per output index, bit-exact: the scale is
-    the double-rounded reciprocal 1.0 / (out / in), in float64."""
-    scale = 1.0 / (out_size / in_size)
-    idx = np.floor(np.arange(out_size, dtype=np.float64) * scale).astype(np.int64)
-    return np.clip(idx, 0, in_size - 1)
 
 
 def resize_nearest_nchw(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
