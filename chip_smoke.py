@@ -61,8 +61,27 @@ Phases, each raising on failure (exit code != 0):
      masks; the C++ and Python tracers equal on every channel that counts
      (ms per 1000x1000 mask of each); the port's client in masks mode (K1
      once per streamed block; render seconds) against a local bf16 predict,
-     PNGs byte-identical; 503 with Retry-After while the admission
+     both with cuDNN's deterministic algorithms, PNGs byte-identical; 503 with Retry-After while the admission
      semaphore is held; /healthz says gpu, /metrics counts the requests;
+  5e. jpeg forms (run after 5a): the progressive and lossless entropy
+     decoders in C++ against their Python versions, bit-exact, on the
+     committed progressive JPEGs and on lossless streams written in the run
+     by tests/jpeg_streams.py (each equal to its source), ms per frame of
+     each form; LOSSLESS_FRAMES RGB frames at 704 px as a lossless (.70)
+     DICOM and as a native one through predict with the full ensemble, both
+     with cuDNN's deterministic algorithms: every PNG equal, K1 once;
+  5e'. predict repeatability: those RGB frames through two engines over
+     the main path's model dirs with cuDNN's default algorithms, the mask
+     pixels that differ counted per class with their distance from p = 0.5
+     (a flip must lie within 1e-4 of it); K1 twice on the same masks, equal;
+  5f. reference import (run after 5e): the main path's three model dirs
+     saved as the reference saves them (a Lightning checkpoint of the SMP
+     state dict beside config.json), each converted by ``python -m
+     octseg_torch.models.convert_torch`` (seconds each; weights.ckpt
+     byte-equal to the model dir's, config.json equal), the converted
+     ensemble through predict on 5e's native pullback with cuDNN's
+     deterministic algorithms, K1 once: every PNG equal to 5e's predict of
+     the model dirs;
   6. ensemble routing with the three families at 64 px (UnetPlusPlus/
      resnet101, LinkNet/efficientnet-b7, Unet/timm-regnetx_064) over all
      four classes, GPU against CPU;
@@ -145,6 +164,7 @@ the card line again, the kernels line and the result line, which is last.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import shutil
@@ -171,6 +191,8 @@ TRAIN_FRAME_PX = 1000         # the dataset's frames (configs/convert_sly_to_int
 TRAIN_SPLITS = (16, 4, 2)     # train, test, vis samples of the synthetic fold
 JPEG_FIXTURE = os.path.join(REPO, 'tests', 'torch_fixtures', 'jpeg')
 IMAGE_DIR_PNGS = 8            # RGB PNGs at MAIN_OUT beside 8 of the fixture's JPEG frames
+LOSSLESS_FRAMES = 16          # RGB frames of the lossless (.70) pullback
+JPEG_LOSSLESS_UID = '1.2.840.10008.1.2.4.70'
 # bf16 against fp32 predict (bounds stated in PERF.md before the first run):
 # per class, the share of pixels whose masks differ where the fp32
 # probability is at least BF16_BAND from 0.5 must stay within BF16_MASK_SHARE
@@ -1343,6 +1365,258 @@ def image_directory(tmp: str, main):
                        'image-directory predict')
 
 
+def same_file(a: str, b: str) -> bool:
+    with open(a, 'rb') as f, open(b, 'rb') as g:
+        return f.read() == g.read()
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN restricted to its deterministic algorithms: with its default
+    choice two predicts of the same frames on an H100 wrote different mask
+    PNGs (PERF.md)."""
+    import torch
+
+    before = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = before
+
+
+def predict_repeatability(main, card: str):
+    """Whether the predict path repeats bit for bit on the card with
+    cuDNN's default algorithms, as a user runs it. The jpeg forms phase's
+    RGB frames, on which two predicts once wrote different mask PNGs
+    (PERF.md), through two engines built as predict builds them over the
+    main path's model dirs: the mask pixels that differ between the two,
+    counted per class, and each one's distance from p = 0.5 read from the
+    probabilities of a third pass. A flip must lie within 1e-4 of 0.5, the
+    allowance of the other predict comparisons. K1 twice on the first
+    engine's masks: fill and ring equal (these launches count to no
+    path)."""
+    import numpy as np
+    import torch
+
+    from octseg_torch.core.config import load_config
+    from octseg_torch.core.registry import CLASS_IDS
+    from octseg_torch.infer.engine import InferenceEngine
+    from octseg_torch.ops.kernels.postprocess import fused_overlay_postprocess
+
+    cfg = load_config('predict')
+    frames = synthetic_pullback(LOSSLESS_FRAMES, MAIN_FRAME_PX, 9)
+    frames = np.stack([frames, (0.8 * frames).astype(np.uint8), frames // 2], -1)
+    out = (MAIN_OUT, MAIN_OUT)
+    masks = []
+    for _ in range(2):
+        engine = InferenceEngine(main['models'], list(cfg.classes),
+                                 block_size=int(cfg.get('block_size', 128)),
+                                 output_resize=str(cfg.get('output_resize', 'prob_bilinear')),
+                                 device='cuda')
+        masks.append(engine.segment_pullback(frames, out))
+    differ = masks[0] != masks[1]
+    dist = np.full(differ.shape, np.inf, np.float32)
+    for name, routes in engine._ensemble_plan().items():
+        p = probabilities(engine, name, frames, out)
+        for _cls, ch, mask_ch in routes:
+            dist[..., mask_ch] = np.abs(p[:, ch] - 0.5)
+        del p
+    flipped = dist[differ]
+    classes = sorted(CLASS_IDS, key=CLASS_IDS.get)     # the mask channels, in order
+    record = {'card': card, 'frames': LOSSLESS_FRAMES, 'mask_px': int(differ.size),
+              'differing_px': int(differ.sum()),
+              'differing_px_by_channel': dict(zip(classes, differ.sum(axis=(0, 1, 2)).tolist())),
+              'frames_differing': int(differ.any(axis=(1, 2, 3)).sum()),
+              'flip_max_dist_from_half': float(flipped.max()) if flipped.size else None,
+              'flips_at_exactly_half': int((flipped == 0).sum())}
+    m = torch.from_numpy(np.ascontiguousarray(masks[0].transpose(0, 3, 1, 2))).to('cuda')
+    m = m.reshape(-1, *out).contiguous()
+    first, second = fused_overlay_postprocess(m), fused_overlay_postprocess(m)
+    record['k1_repeats'] = bool(all(torch.equal(a, b) for a, b in zip(first, second)))
+    log(f'{card}: predict repeatability, cuDNN default: {record["differing_px"]} mask px of '
+        f'{differ.size} differ between two engines ({record["frames_differing"]} of '
+        f'{LOSSLESS_FRAMES} frames; by channel {record["differing_px_by_channel"]}), largest '
+        f'distance of a flip from p = 0.5 {record["flip_max_dist_from_half"]}, '
+        f'{record["flips_at_exactly_half"]} at exactly 0.5; K1 repeats: {record["k1_repeats"]}')
+    if flipped.size and flipped.max() >= 1e-4:
+        raise AssertionError('two engines\' masks differ away from p = 0.5')
+    if not record['k1_repeats']:
+        raise AssertionError('K1 is not repeatable on the same masks')
+    return record
+
+
+def jpeg_streams():
+    """tests/jpeg_streams.py, loaded from its path: a ``tests`` package
+    installed elsewhere may come first on sys.path."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        'jpeg_streams', os.path.join(REPO, 'tests', 'jpeg_streams.py'))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def jpeg_forms(tmp: str, main, card: str):
+    """The JPEG forms of the progressive and lossless decoders on the card's
+    host: the C++ entropy decoders against their plain Python versions,
+    bit-exact, on the committed progressive JPEGs and on lossless streams
+    written here by tests/jpeg_streams.py (predictors 1-7, a point
+    transform, a restart interval, RGB), each lossless one equal to its
+    source; ms per frame of each form. Then LOSSLESS_FRAMES RGB frames at
+    MAIN_FRAME_PX written as a lossless (.70) DICOM and as a native one,
+    both through predict with the full ensemble and cuDNN's deterministic
+    algorithms: every overlay and mask PNG equal byte for byte, K1 once on
+    the lossless run."""
+    import numpy as np
+
+    from octseg_torch.data import dicom
+    from octseg_torch.data.jpeg import decode_jpeg
+
+    js = jpeg_streams()
+    record = {'card': card, 'ms_per_frame': {}}
+
+    def both(label, data, want=None):
+        times = {}
+        out = {}
+        for impl, native in (('cpp', True), ('python', False)):
+            t = time.perf_counter()
+            out[impl] = decode_jpeg(data, native=native)
+            times[impl] = (time.perf_counter() - t) * 1e3
+        if not np.array_equal(out['cpp'], out['python']):
+            raise AssertionError(f'{label}: C++ and Python entropy decoders differ')
+        if want is not None and not np.array_equal(out['cpp'], want):
+            raise AssertionError(f'{label}: the lossless decode differs from its source')
+        record['ms_per_frame'][label] = times
+
+    for name in sorted(f for f in os.listdir(JPEG_FIXTURE) if f.startswith('progressive')):
+        with open(os.path.join(JPEG_FIXTURE, name), 'rb') as f:
+            both(name, f.read())
+    src = synthetic_pullback(1, 96, 3)[0]
+    rgb = np.stack([src, (0.8 * src).astype(np.uint8), src // 2], -1)
+    for p in range(1, 8):
+        both(f'lossless 96 px gray, predictor {p}', js.encode_lossless(src, predictor=p), src)
+    both('lossless 96 px RGB, predictor 4, Pt 2, restart 8 rows',
+         js.encode_lossless(rgb, predictor=4, pt=2, restart_rows=8), (rgb >> 2) << 2)
+
+    frames = synthetic_pullback(LOSSLESS_FRAMES, MAIN_FRAME_PX, 9)
+    frames = np.stack([frames, (0.8 * frames).astype(np.uint8), frames // 2], -1)
+    t = time.perf_counter()
+    with ThreadPoolExecutor(8) as pool:
+        streams = list(pool.map(js.encode_lossless, frames))
+    record['encode_s'] = time.perf_counter() - t
+    dcms = {}
+    for label in ('lossless', 'native'):
+        os.makedirs(os.path.join(tmp, label))
+        dcms[label] = os.path.join(tmp, label, 'IMG001')   # one name: the PNGs' names
+    js.write_encapsulated_dicom(dcms['lossless'], [[s] for s in streams], MAIN_FRAME_PX,
+                                MAIN_FRAME_PX, 3, JPEG_LOSSLESS_UID, LOSSLESS_FRAMES)
+    dicom.dcmwrite(dcms['native'], frames)
+    t = time.perf_counter()
+    decoded = dicom.dcmread(dcms['lossless']).pixel_array
+    record['ms_per_frame'][f'lossless {MAIN_FRAME_PX} px RGB pullback, C++, 8 threads'] = {
+        'cpp': (time.perf_counter() - t) * 1e3 / LOSSLESS_FRAMES}
+    if not np.array_equal(decoded, frames):
+        raise AssertionError('the lossless pullback does not decode to its frames')
+    t = time.perf_counter()
+    decode_jpeg(streams[0])
+    record['ms_per_frame'][f'lossless {MAIN_FRAME_PX} px RGB frame, C++'] = {
+        'cpp': (time.perf_counter() - t) * 1e3}
+    with deterministic_cudnn():
+        runs = {label: run_predict([f'data_dir={dcm}', f'models_dir={main["models"]}'],
+                                   os.path.join(tmp, f'predict_{label}'), LOSSLESS_FRAMES,
+                                   f'{label} RGB pullback predict')
+                for label, dcm in dcms.items()}
+    if runs['lossless']['k1_launches'] != 1:
+        raise AssertionError(f'the lossless pullback launched K1 '
+                             f'{runs["lossless"]["k1_launches"]} times, expected once')
+    pngs = sorted(os.listdir(os.path.join(tmp, 'predict_lossless')))
+    if pngs != sorted(os.listdir(os.path.join(tmp, 'predict_native'))) \
+            or len(pngs) != 2 * LOSSLESS_FRAMES:
+        raise AssertionError('the lossless and native pullbacks wrote different PNGs')
+    differ = [f for f in pngs if not same_file(os.path.join(tmp, 'predict_lossless', f),
+                                               os.path.join(tmp, 'predict_native', f))]
+    if differ:
+        raise AssertionError(f'the lossless pullback differs from the native one in {differ}')
+    record.update(k1_launches=runs['lossless']['k1_launches'], pngs_equal=len(pngs),
+                  lossless_predict=runs['lossless'], native_predict=runs['native'],
+                  native_dcm=dcms['native'], native_out=os.path.join(tmp, 'predict_native'))
+    ms = {k: {i: round(v, 2) for i, v in d.items()} for k, d in record['ms_per_frame'].items()}
+    log(f'{card}: JPEG forms ms per frame {json.dumps(ms)}; {len(pngs)} PNGs of the lossless '
+        f'pullback equal the native one\'s')
+    return record
+
+
+def reference_import(tmp: str, main, forms, card: str):
+    """The reference-checkpoint import at full width: the main path's three
+    model dirs (the winners, weights from seeds 0-2) written as the
+    reference writes them, config.json beside a Lightning checkpoint of the
+    SMP state dict (``model.`` prefix, SMP's mean/std buffers, optimizer and
+    scheduler states, epoch and step); each converted by ``python -m
+    octseg_torch.models.convert_torch`` (seconds each), its weights.ckpt
+    byte-equal to the model dir's and its config.json equal. The converted
+    ensemble through predict on the jpeg forms phase's native pullback
+    with cuDNN's deterministic algorithms, K1 once: every PNG equal to
+    that phase's predict of the model dirs (``forms``), made the same
+    way."""
+    import torch
+
+    from octseg_torch.infer.engine import load_model_bundle
+
+    record = {'card': card, 'convert_s': {}}
+    converted = os.path.join(tmp, 'converted')
+    for name, *_rest in ENSEMBLE:
+        model_dir = os.path.join(main['models'], name)
+        model, _cfg = load_model_bundle(model_dir, torch.device('cpu'))
+        sd = {f'model.{k}': v for k, v in model.state_dict().items()}
+        first = next(iter(sd.values()))
+        ref = os.path.join(tmp, 'reference', name)
+        os.makedirs(ref)
+        torch.save({'epoch': 24, 'global_step': 2500, 'pytorch-lightning_version': '2.1.3',
+                    'state_dict': {'mean': torch.tensor([0.485, 0.456, 0.406]) * 255,
+                                   'std': torch.tensor([0.229, 0.224, 0.225]) * 255, **sd},
+                    'optimizer_states': [{'state': {0: {'step': torch.tensor(2500.0),
+                                                        'exp_avg': torch.zeros_like(first)}},
+                                          'param_groups': [{'lr': 1e-4, 'params': [0]}]}],
+                    'lr_schedulers': [{'last_epoch': 24, '_last_lr': [1e-4]}],
+                    'callbacks': {}, 'hyper_parameters': {'lr': 1e-4}},
+                   os.path.join(ref, 'weights.ckpt'))
+        shutil.copy(os.path.join(model_dir, 'config.json'), ref)
+        del model, sd
+        t = time.perf_counter()
+        subprocess.run([sys.executable, '-m', 'octseg_torch.models.convert_torch', ref,
+                        os.path.join(converted, name)], cwd=REPO, check=True, timeout=600,
+                       stdout=subprocess.DEVNULL)
+        record['convert_s'][name] = time.perf_counter() - t
+        with open(os.path.join(model_dir, 'weights.ckpt'), 'rb') as a, \
+                open(os.path.join(converted, name, 'weights.ckpt'), 'rb') as b:
+            if a.read() != b.read():
+                raise AssertionError(f'{name}: the converted weights.ckpt differs')
+        with open(os.path.join(model_dir, 'config.json')) as a, \
+                open(os.path.join(converted, name, 'config.json')) as b:
+            if json.load(a) != json.load(b):
+                raise AssertionError(f'{name}: the converted config.json differs')
+    out, direct = os.path.join(tmp, 'predict_converted'), forms['native_out']
+    with deterministic_cudnn():
+        run = run_predict([f'data_dir={forms["native_dcm"]}', f'models_dir={converted}'], out,
+                          LOSSLESS_FRAMES, 'converted ensemble predict')
+    if run['k1_launches'] != 1:
+        raise AssertionError(f'the converted ensemble launched K1 {run["k1_launches"]} times, '
+                             f'expected once')
+    pngs = sorted(os.listdir(out))
+    if pngs != sorted(os.listdir(direct)) or len(pngs) != 2 * LOSSLESS_FRAMES:
+        raise AssertionError('the converted and direct ensembles wrote different files')
+    differ = [f for f in pngs if not same_file(os.path.join(out, f), os.path.join(direct, f))]
+    if differ:
+        raise AssertionError(f'the converted ensemble differs from the direct one in {differ}')
+    record.update(k1_launches=run['k1_launches'], pngs_equal=len(pngs), converted_predict=run)
+    log(f'{card}: reference import, seconds per conversion '
+        f'{json.dumps({k: round(v, 2) for k, v in record["convert_s"].items()})}; the converted '
+        f'ensemble\'s {len(pngs)} PNGs equal the direct ensemble\'s')
+    return record
+
+
 def bf16_predict(tmp: str, main):
     """The 32-frame main-path pullback with ``bf16=true`` against fp32 on
     the ensemble with softened heads: per class, the share of pixels whose
@@ -1428,7 +1702,8 @@ def serve_path(tmp: str, main, models: str):
     Python tracer, and the C++ and Python tracers equal on every channel
     that counts (ms per mask of each); the port's client in masks mode (K1
     once per streamed block) against a local ``predict.main`` with
-    bf16=true, PNGs byte-identical; a 503 with Retry-After while the
+    bf16=true, both with cuDNN's deterministic algorithms, PNGs
+    byte-identical; a 503 with Retry-After while the
     admission semaphore is held; /healthz and /metrics."""
     import urllib.error
     import urllib.request
@@ -1526,21 +1801,27 @@ def serve_path(tmp: str, main, models: str):
             render_s[0] += time.perf_counter() - t
 
         client.save_block = timed
-        try:
-            k1.launches = 0
-            t = time.perf_counter()
-            done = client.run(Config(server_url=url, dcm_path=main['dcm'],
-                                     save_dir=os.path.join(tmp, 'client'), format='masks',
-                                     classes=list(cfg.classes)))
-            record['client_s'] = time.perf_counter() - t
-            record['k1_launches'] = k1.launches
-        finally:
-            client.save_block = save_block
-        record['client_render_s'] = render_s[0]
-        if done != n or record['k1_launches'] < 1:
-            raise AssertionError(f'client: {done} frames, {record["k1_launches"]} K1 launches')
-        local = run_predict([f'data_dir={main["dcm"]}', f'models_dir={models}', 'bf16=true'],
-                            os.path.join(tmp, 'serve_local'), n, 'serve: local bf16 predict')
+        # two predicts repeat bit for bit only with cuDNN's deterministic
+        # algorithms (predict_repeatability); the server's engine runs in
+        # this process and reads the same flag
+        with deterministic_cudnn():
+            try:
+                k1.launches = 0
+                t = time.perf_counter()
+                done = client.run(Config(server_url=url, dcm_path=main['dcm'],
+                                         save_dir=os.path.join(tmp, 'client'), format='masks',
+                                         classes=list(cfg.classes)))
+                record['client_s'] = time.perf_counter() - t
+                record['k1_launches'] = k1.launches
+            finally:
+                client.save_block = save_block
+            record['client_render_s'] = render_s[0]
+            if done != n or record['k1_launches'] < 1:
+                raise AssertionError(f'client: {done} frames, {record["k1_launches"]} K1 '
+                                     f'launches')
+            local = run_predict([f'data_dir={main["dcm"]}', f'models_dir={models}',
+                                 'bf16=true'], os.path.join(tmp, 'serve_local'), n,
+                                'serve: local bf16 predict')
         names = sorted(os.listdir(os.path.join(tmp, 'client')))
         if names != sorted(os.listdir(os.path.join(tmp, 'serve_local'))) or len(names) != 2 * n:
             raise AssertionError('the client and the local predict wrote different files')
@@ -2442,6 +2723,9 @@ def main() -> int:
         jpeg = phases.run('JPEG decode', jpeg_decode)
         jpeg_predict = phases.run('JPEG pullback predict', jpeg_pullback, tmp, main)
         images = phases.run('image-directory predict', image_directory, tmp, main)
+        forms = phases.run('jpeg forms', jpeg_forms, tmp, main, card)
+        repeat = phases.run('predict repeatability', predict_repeatability, main, card)
+        imported = phases.run('reference import', reference_import, tmp, main, forms, card)
         memory = phases.run('block memory', block_memory, main)
         memory_bf16 = phases.run('block memory bf16', block_memory, main, True)
         bf16 = phases.run('bf16 predict', bf16_predict, tmp, main)
@@ -2475,9 +2759,12 @@ def main() -> int:
         'route': 'cuda',
         'source': 'octseg_torch/csrc/postprocess.cu',
         'replaces': 'octseg/ops/pallas/postprocess.py:149',
-        'launches': main['launches'] + served['k1_launches'] + zoo['launches'],
+        'launches': (main['launches'] + served['k1_launches'] + zoo['launches']
+                     + forms['k1_launches'] + imported['k1_launches']),
         'launches_by_path': {'predict': main['launches'], 'serve client': served['k1_launches'],
-                             'zoo predict': zoo['launches'], 'analyze': analyzed['k1_launches']},
+                             'zoo predict': zoo['launches'], 'analyze': analyzed['k1_launches'],
+                             'jpeg forms (lossless pullback)': forms['k1_launches'],
+                             'reference import (converted ensemble)': imported['k1_launches']},
         'shape': k1['shape'],
         'max_abs_err': k1['max_abs_err'],
         'ring_exact': k1['ring_exact'],
@@ -2520,6 +2807,9 @@ def main() -> int:
                'jpeg_decode': jpeg,
                'jpeg_pullback_predict': jpeg_predict,
                'image_directory_predict': images,
+               'jpeg_forms': forms,
+               'reference_import': imported,
+               'predict_repeatability': repeat,
                'block_memory': memory,
                'block_memory_bf16': memory_bf16,
                'bf16_predict': bf16,

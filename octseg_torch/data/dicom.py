@@ -4,11 +4,16 @@ A copy of octseg/data/dicom.py (numpy and struct only; the port imports
 nothing of octseg). It implements the subset OCT pullbacks need:
 
 - read: explicit & implicit VR little endian; native (uncompressed) pixel
-  data for uint8/uint16; encapsulated JPEG Baseline (1.2.840.10008.1.2.4.50)
-  and JPEG Extended (.51) frames, decoded as octseg decodes them with
-  ``cv2.imdecode(..., IMREAD_UNCHANGED)`` by the port's own decoder
-  (data/jpeg.py); other encapsulated transfer syntaxes raise. The tag
-  dictionary covers the fields the metadata extractor exports.
+  data for uint8/uint16; encapsulated frames, decoded as octseg decodes
+  them with ``cv2.imdecode(..., IMREAD_UNCHANGED)``, by the port's own
+  decoder (data/jpeg.py). As with cv2, the stream's own form decides and
+  the transfer syntax appears only in messages: what cv2 does not decode
+  (RLE, JPEG-LS, hierarchical and arithmetic lossless JPEG, samples of more
+  than 8 bits, 2 components) raises octseg's DicomError('Cannot decode
+  frame ...'); what cv2 decodes and the port does not yet (JPEG 2000,
+  arithmetic-coded JPEG, YCCK) raises NotImplementedError naming the
+  ROADMAP item. The tag dictionary covers the fields the metadata extractor
+  exports.
 - write: explicit VR little endian, multi-frame 8-bit RGB or grayscale,
   uncompressed — used by tests and demo-data generation.
 """
@@ -22,12 +27,12 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
-from octseg_torch.data.jpeg import ROADMAP_ITEM, decode_jpeg
+from octseg_torch.data.jpeg import ROADMAP_ITEM, UndecodableJPEG, decode_jpeg
 
 EXPLICIT_LE = '1.2.840.10008.1.2.1'
 IMPLICIT_LE = '1.2.840.10008.1.2'
-JPEG_BASELINE = '1.2.840.10008.1.2.4.50'
-JPEG_EXTENDED = '1.2.840.10008.1.2.4.51'
+# a JPEG 2000 codestream, and a JP2 file
+_J2K_SIGNATURES = (b'\xff\x4f\xff\x51', b'\x00\x00\x00\x0cjP  \r\n\x87\n')
 
 # Keyword -> (group, element, VR)
 TAGS = {
@@ -154,13 +159,10 @@ class Dataset:
 
     @staticmethod
     def _decode_fragments(raw: List[bytes], frames: int, ts: str) -> np.ndarray:
-        """JPEG frames -> (frames, H, W, 3) RGB or (frames, H, W) uint8, as
-        octseg's cv2.imdecode path: one frame split into several fragments
-        is joined; any other mismatch of fragments and frames raises."""
-        if ts not in (JPEG_BASELINE, JPEG_EXTENDED):
-            raise NotImplementedError(
-                f'encapsulated pixel data in transfer syntax {ts} is not decoded: '
-                f'octseg_torch decodes JPEG Baseline and Extended frames ({ROADMAP_ITEM})')
+        """Encapsulated frames -> (frames, H, W, 3) RGB or (frames, H, W)
+        uint8, as octseg's cv2.imdecode path: one frame split into several
+        fragments is joined; any other mismatch of fragments and frames
+        raises."""
         if len(raw) != frames:
             if frames != 1:
                 raise DicomError(f'{len(raw)} pixel-data fragments for {frames} frames '
@@ -169,7 +171,24 @@ class Dataset:
         # the entropy decoder runs outside the interpreter lock (ctypes), and
         # so does most of numpy's share
         with ThreadPoolExecutor(min(8, len(raw), os.cpu_count() or 1)) as pool:
-            return np.stack(list(pool.map(decode_jpeg, raw)))
+            return np.stack(list(pool.map(lambda frag: _decode_frame(frag, ts), raw)))
+
+
+def _decode_frame(frag: bytes, ts: str) -> np.ndarray:
+    """One fragment as cv2.imdecode reads it: a JPEG stream (cv2's signature
+    FF D8 FF) by its own form; JPEG 2000 is not decoded yet; anything else
+    cv2 does not decode raises DicomError."""
+    if frag.startswith(_J2K_SIGNATURES):
+        raise NotImplementedError(f'JPEG 2000 frame (transfer syntax {ts}) is not decoded by '
+                                  f'octseg_torch yet, though cv2 decodes it ({ROADMAP_ITEM})')
+    if not frag.startswith(b'\xff\xd8\xff'):
+        raise DicomError(f'Cannot decode frame (transfer syntax {ts})')
+    try:
+        return decode_jpeg(frag)
+    except UndecodableJPEG as err:
+        raise DicomError(f'Cannot decode frame (transfer syntax {ts})') from err
+    except NotImplementedError as err:
+        raise NotImplementedError(f'frame in transfer syntax {ts}: {err}') from err
 
 
 def _skip_undefined_sequence(buf, pos: int, explicit: bool) -> int:

@@ -5,10 +5,14 @@
   horizontal pass, then vertical, each through uint8 with 22-bit fixed-point
   coefficients — Pillow's Resample.c ``precompute_coeffs`` and
   ``normalize_coeffs_8bpc``).
+- ``pil_resize_bicubic_16``: the same resize of a 16-bit gray (I;16)
+  image, in float64 coefficients (Pillow's ``ImagingResample*_16bpc``, with
+  its byte-wise clipping of sums outside 0..65535).
 - ``open_image`` and ``pil_resize``: ``PIL.Image.open(path)`` of a PNG or
-  JPEG file in mode L, P, RGB or RGBA, and its default ``resize``: bicubic
-  for L and RGB, bicubic on premultiplied alpha for RGBA (Pillow's RGBa
-  round trip), NEAREST in Pillow's coordinates for P.
+  JPEG file in mode L, P, RGB, RGBA, I;16 or CMYK, and its default
+  ``resize``: bicubic for L, RGB, I;16 and CMYK, bicubic on premultiplied
+  alpha for RGBA (Pillow's RGBa round trip), NEAREST in Pillow's
+  coordinates for P.
 - ``paste_solid``: ``Image.paste(solid colour image, (0, 0), L mask)``,
   Pillow's integer blend DIV255(in1 * (255 - a) + in2 * a).
 - ``encode_png``: an 8-bit gray, RGB or RGBA PNG through zlib;
@@ -20,6 +24,9 @@
 - ``resize_linear_u8``: ``cv2.resize(img, (w, h))`` (INTER_LINEAR) of a
   uint8 image, with cv2's 11-bit fixed-point coefficients, its rounding in
   the vertical pass and its switch to INTER_AREA for an exact 2x downscale.
+- ``resize_linear_u16``: the same of a uint16 image, in float32 as cv2's
+  generic code (cv2 built with IPP, the opencv-python default, rounds about
+  one value in a thousand the other way).
 - ``resize_nearest_u8``: ``cv2.resize(..., interpolation=INTER_NEAREST)``.
 """
 
@@ -32,7 +39,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 
-from octseg_torch.data.jpeg import ROADMAP_ITEM, decode_jpeg
+from octseg_torch.data.jpeg import ROADMAP_ITEM, decode_jpeg, decode_jpeg_pil
 
 _PRECISION_BITS = 32 - 8 - 2
 
@@ -46,9 +53,10 @@ def _bicubic(x: np.ndarray) -> np.ndarray:
     return np.where(x < 1.0, near, np.where(x < 2.0, far, 0.0))
 
 
-def _coeffs(in_size: int, out_size: int) -> Tuple[np.ndarray, np.ndarray]:
-    """(source index, int32 weight) tables, each (out_size, ksize); weights
-    beyond a row's support are 0 and their indices clamped in range."""
+def _float_coeffs(in_size: int, out_size: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(source index, float64 weight, valid) tables, each (out_size, ksize),
+    Pillow's ``precompute_coeffs``: weights normalized to sum 1, indices
+    beyond a row's support clamped in range and marked invalid."""
     scale = float(in_size) / out_size
     filterscale = max(scale, 1.0)
     support = 2.0 * filterscale
@@ -63,11 +71,17 @@ def _coeffs(in_size: int, out_size: int) -> Tuple[np.ndarray, np.ndarray]:
                                  * (1.0 / filterscale)), 0.0)
     ww = w.sum(axis=1, keepdims=True)
     w = np.where(ww != 0.0, w / np.where(ww != 0.0, ww, 1.0), w)
+    return np.minimum(xmin[:, None] + x, in_size - 1), w, valid
+
+
+def _coeffs(in_size: int, out_size: int) -> Tuple[np.ndarray, np.ndarray]:
+    """(source index, int32 weight) tables, each (out_size, ksize); weights
+    beyond a row's support are 0 and their indices clamped in range
+    (``normalize_coeffs_8bpc``)."""
+    idx, w, valid = _float_coeffs(in_size, out_size)
     fixed = w * (1 << _PRECISION_BITS)
     k = np.trunc(np.where(w < 0, fixed - 0.5, fixed + 0.5)).astype(np.int64)
-    k = np.where(valid, k, 0)
-    idx = np.minimum(xmin[:, None] + x, in_size - 1)
-    return idx, k
+    return idx, np.where(valid, k, 0)
 
 
 def _resample_axis(img: np.ndarray, axis: int, out_size: int) -> np.ndarray:
@@ -91,6 +105,34 @@ def pil_resize_bicubic(img: np.ndarray, size: Sequence[int]) -> np.ndarray:
         img = _resample_axis(img, 1, out_w)
     if out_h != img.shape[0]:
         img = _resample_axis(img, 0, out_h)
+    return img
+
+
+def _resample_axis_16(img: np.ndarray, axis: int, out_size: int) -> np.ndarray:
+    """One pass of Pillow's ``ImagingResample*_16bpc``: the taps summed in
+    float64 in order, rounded half away from zero, then stored as two bytes
+    each clipped to 0..255 on its own (a sum above 65535 keeps its low byte
+    under a high byte of 255; one below 0 reads 0)."""
+    idx, w, valid = _float_coeffs(img.shape[axis], out_size)
+    shape = [1] * img.ndim
+    shape[axis] = out_size
+    acc = np.zeros(shape, np.float64)
+    for j in range(w.shape[1]):
+        taps = np.take(img, idx[:, j], axis=axis).astype(np.float64)
+        acc = acc + np.where(valid[:, j].reshape(shape), taps * w[:, j].reshape(shape), 0.0)
+    v = np.trunc(np.where(acc >= 0, acc + 0.5, acc - 0.5)).astype(np.int64)
+    low = np.clip(np.fmod(v, 256), 0, 255)
+    return (np.clip(v >> 8, 0, 255) << 8 | low).astype(np.uint16)
+
+
+def pil_resize_bicubic_16(img: np.ndarray, size: Sequence[int]) -> np.ndarray:
+    """uint16 (H, W) -> (h, w) for ``size = (w, h)``, as ``resize(size)`` of
+    a PIL ``I;16`` image."""
+    out_w, out_h = int(size[0]), int(size[1])
+    if out_w != img.shape[1]:
+        img = _resample_axis_16(img, 1, out_w)
+    if out_h != img.shape[0]:
+        img = _resample_axis_16(img, 0, out_h)
     return img
 
 
@@ -321,9 +363,10 @@ def read_png(path: str) -> np.ndarray:
 
 class PilImage(NamedTuple):
     """What ``PIL.Image.open`` holds for the modes the port reads: ``mode``
-    'L', 'P', 'RGB' or 'RGBA'; ``pixels`` as ``np.array(img)`` gives them
-    (uint8 (H, W) for L and P, whose values are palette indices; (H, W, 3)
-    or (H, W, 4) otherwise); ``palette`` (256, 3) uint8 for P."""
+    'L', 'P', 'RGB', 'RGBA', 'I;16' or 'CMYK'; ``pixels`` as ``np.array(img)``
+    gives them (uint8 (H, W) for L and P, whose values are palette indices;
+    uint16 (H, W) for I;16; uint8 (H, W, 3) or (H, W, 4) otherwise);
+    ``palette`` (256, 3) uint8 for P."""
     mode: str
     pixels: np.ndarray
     palette: Optional[np.ndarray] = None
@@ -335,35 +378,44 @@ class PilImage(NamedTuple):
 
     def to_rgb(self) -> np.ndarray:
         """``img.convert('RGB')`` as (H, W, 3) uint8: a palette looked up
-        (transparency ignored), gray replicated, alpha dropped."""
+        (transparency ignored), gray replicated (16-bit gray clipped at 255),
+        alpha dropped, CMYK as Pillow's cmyk2rgb: each of C, M, Y becomes
+        nk - nk * x / 255 (Pillow's rounded MULDIV255), nk = 255 - K."""
         if self.mode == 'P':
             return self.palette[self.pixels]
-        if self.mode == 'L':
-            return np.repeat(self.pixels[..., None], 3, axis=-1)
+        if self.mode in ('L', 'I;16'):
+            gray = np.minimum(self.pixels, 255).astype(np.uint8)
+            return np.repeat(gray[..., None], 3, axis=-1)
+        if self.mode == 'CMYK':
+            x = self.pixels.astype(np.int32)
+            nk = 255 - x[..., 3:]
+            t = x[..., :3] * nk + 128
+            return np.clip(nk - (((t >> 8) + t) >> 8), 0, 255).astype(np.uint8)
         return np.ascontiguousarray(self.pixels[..., :3])
 
 
 def _unsupported_mode(path: str, mode: str) -> NotImplementedError:
     return NotImplementedError(
-        f'{path}: PIL opens this file in mode {mode}, which octseg_torch does not read '
-        f'(it reads L, P, RGB and RGBA) ({ROADMAP_ITEM})')
+        f'{path}: PIL opens this file in mode {mode}, which octseg rejects too: its '
+        f'cv2.cvtColor refuses the array ({ROADMAP_ITEM})')
 
 
 def open_image(path: str) -> PilImage:
     """``PIL.Image.open(path)`` of a PNG or JPEG file (no EXIF orientation,
-    as PIL). Modes other than L, P, RGB and RGBA (1-bit, 16-bit gray and
-    8-bit gray-alpha PNGs; CMYK JPEGs) raise NotImplementedError."""
+    as PIL). 1-bit and 8-bit gray-alpha PNGs, which PIL opens and octseg's
+    preprocessing rejects, raise NotImplementedError."""
     with open(path, 'rb') as f:
         buf = f.read()
     if buf[:3] == _JPEG_SOI:
-        img = decode_jpeg(buf)
-        return PilImage('L' if img.ndim == 2 else 'RGB', img)
+        return PilImage(*decode_jpeg_pil(buf))
     samples, color, depth, plte = _decode_png(buf, path)
     if color == 3:
         return PilImage('P', np.ascontiguousarray(samples[..., 0]), _palette_table(plte))
     if color == 0:
-        if depth == 1 or depth == 16:
-            raise _unsupported_mode(path, '1' if depth == 1 else 'I;16')
+        if depth == 1:
+            raise _unsupported_mode(path, '1')
+        if depth == 16:
+            return PilImage('I;16', np.ascontiguousarray(samples[..., 0]).astype(np.uint16))
         return PilImage('L', np.ascontiguousarray(_to_8bit(samples, depth)[..., 0]))
     if color == 4:
         if depth == 8:
@@ -408,6 +460,8 @@ def pil_resize(img: PilImage, size: Sequence[int]) -> PilImage:
         un = np.where((a == 0) | (a == 255), res[..., :3],
                       np.minimum(255 * res[..., :3] // np.maximum(a, 1), 255))
         return PilImage('RGBA', np.concatenate([un, a], -1).astype(np.uint8))
+    if img.mode == 'I;16':
+        return PilImage('I;16', pil_resize_bicubic_16(img.pixels, (out_w, out_h)))
     return PilImage(img.mode, pil_resize_bicubic(img.pixels, (out_w, out_h)))
 
 
@@ -416,9 +470,9 @@ def pil_resize(img: PilImage, size: Sequence[int]) -> PilImage:
 _RESIZE_COEF_SCALE = 2048   # cv2 INTER_RESIZE_COEF_SCALE (11 fractional bits)
 
 
-def _linear_taps(in_size: int, out_size: int, clamp: bool):
-    """cv2's INTER_LINEAR table for one axis: (first index, second index,
-    first weight, second weight), weights as int16 fixed point.
+def _linear_positions(in_size: int, out_size: int, clamp: bool):
+    """cv2's INTER_LINEAR positions for one axis: (first index, second index,
+    float32 fraction of the second).
 
     The source position is float((d + 0.5) * scale - 0.5) with the
     double-rounded scale 1 / (out / in), floored in float32. Along x
@@ -435,6 +489,13 @@ def _linear_taps(in_size: int, out_size: int, clamp: bool):
         s = np.clip(s, 0, in_size - 1)
     s1 = np.clip(s + 1, 0, in_size - 1)
     s = np.clip(s, 0, in_size - 1)
+    return s, s1, f
+
+
+def _linear_taps(in_size: int, out_size: int, clamp: bool):
+    """cv2's INTER_LINEAR table for one axis: (first index, second index,
+    first weight, second weight), weights as int16 fixed point."""
+    s, s1, f = _linear_positions(in_size, out_size, clamp)
     # saturate_cast<short>(float) rounds half to even, as np.rint
     w0 = np.rint((np.float32(1) - f) * np.float32(_RESIZE_COEF_SCALE)).astype(np.int64)
     w1 = np.rint(f * np.float32(_RESIZE_COEF_SCALE)).astype(np.int64)
@@ -470,6 +531,34 @@ def resize_linear_u8(img: np.ndarray, size: Sequence[int]) -> np.ndarray:
     b1 = b1.reshape(-1, 1, *extra)
     v = ((b0 * rows[ys0]) >> 16) + ((b1 * rows[ys1]) >> 16)
     return ((v + 2) >> 2).astype(np.uint8)
+
+
+def resize_linear_u16(img: np.ndarray, size: Sequence[int]) -> np.ndarray:
+    """``cv2.resize(img, size)`` (INTER_LINEAR) of a uint16 (H, W) or
+    (H, W, C) image, ``size = (w, h)``: float32 weights 1 - f and f, the
+    horizontal pass then the vertical one in float32, rounded half to even
+    and saturated; an exact 2x downscale on both axes is INTER_AREA's
+    rounded mean of each 2x2 block, as for uint8."""
+    if img.dtype != np.uint16 or img.ndim not in (2, 3):
+        raise ValueError(f'resize_linear_u16 takes uint16 (H, W[, C]), got {img.dtype} '
+                         f'{img.shape}')
+    out_w, out_h = int(size[0]), int(size[1])
+    h, w = img.shape[:2]
+    if (out_w, out_h) == (w, h):
+        return img.copy()
+    if w == 2 * out_w and h == 2 * out_h:
+        x = img.astype(np.int64)
+        return ((x[0::2, 0::2] + x[0::2, 1::2] + x[1::2, 0::2] + x[1::2, 1::2] + 2)
+                >> 2).astype(np.uint16)
+    extra = (1,) * (img.ndim - 2)
+    one = np.float32(1)
+    xs0, xs1, fx = _linear_positions(w, out_w, clamp=True)
+    ys0, ys1, fy = _linear_positions(h, out_h, clamp=False)
+    x = img.astype(np.float32)
+    rows = x[:, xs0] * (one - fx).reshape(1, -1, *extra) + x[:, xs1] * fx.reshape(1, -1, *extra)
+    fy = fy.reshape(-1, 1, *extra)
+    v = rows[ys0] * (one - fy) + rows[ys1] * fy
+    return np.clip(np.rint(v), 0, 65535).astype(np.uint16)
 
 
 def nearest_indices(out_size: int, in_size: int) -> np.ndarray:

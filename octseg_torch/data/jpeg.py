@@ -1,12 +1,18 @@
-"""Sequential JPEG decoding, bit-exact with libjpeg-turbo's default decode.
+"""JPEG decoding, bit-exact with libjpeg-turbo's default decode.
 
 octseg reads JPEG files and JPEG-compressed DICOM frames through
 ``cv2.imdecode``/``cv2.imread`` and ``PIL.Image.open``, both libjpeg-turbo
 with its defaults. This module reproduces that decode without either:
 
-- baseline (SOF0) and extended (SOF1) sequential Huffman streams at 8-bit
-  precision, 1 or 3 components, any integral sampling factors, restart
-  intervals (DRI), several DHT and DQT segments, several scans;
+- sequential (SOF0, SOF1) and progressive (SOF2) Huffman streams at 8-bit
+  precision, 1, 3 or 4 components, any integral sampling factors, restart
+  intervals (DRI), several DHT and DQT segments, several scans; a
+  progressive scan may be DC first or refine, AC first (EOB runs) or AC
+  refine (correction bits), and the coefficients add up over the scans;
+- lossless Huffman streams (SOF3) at 2 to 8 bits, predictors 1-7, a point
+  transform, 1, 3 or 4 components at 1x1 sampling, interleaved or one scan
+  per component, restart intervals of whole rows; the samples come out as
+  coded, with no colour conversion;
 - dequantization and the islow IDCT of ``jidctint.c`` (13-bit constants,
   2 pass-1 bits) with its 1024-entry range-limit table;
 - the upsampling of ``jdsample.c`` with ``do_fancy_upsampling``: triangle
@@ -16,17 +22,32 @@ with its defaults. This module reproduces that decode without either:
 - the fixed-point YCbCr -> RGB tables of ``jdcolor.c``;
 - libjpeg's colour-space guess for 3 components: a JFIF marker means YCbCr,
   an Adobe marker with transform 0 RGB (1 or other: YCbCr), component ids
-  'R', 'G', 'B' RGB, anything else YCbCr.
+  'R', 'G', 'B' RGB, anything else YCbCr (RGB in a lossless stream); for 4
+  components an Adobe transform 0, or no Adobe marker, means CMYK. CMYK
+  comes out as cv2 makes it (``decode_jpeg``: three channels by cv2's
+  ``icvCvt_CMYK2BGR_8u_C4C3R``) or as PIL holds it (``decode_jpeg_pil``:
+  libjpeg's samples inverted).
 
-Progressive, lossless, hierarchical and arithmetic-coded streams, 12-bit
-samples and 2 or 4 components raise NotImplementedError (ROADMAP.md, "JPEG
-forms and image modes octseg reads through cv2 and PIL").
+Forms libjpeg-turbo refuses as well, so that cv2.imdecode returns None and
+PIL cannot identify the file, raise ``UndecodableJPEG``: hierarchical
+(SOF5-7, SOF13-15) and arithmetic lossless (SOF11) streams, DCT samples of
+other than 8 bits, lossless ones of more than 8, 2 or more than 4
+components, a height left to a DNL marker, a lossless restart interval of
+part of a row, colour conversion in a lossless stream, reserved markers and
+scan parameters libjpeg rejects. Forms libjpeg-turbo decodes and this
+module does not yet raise NotImplementedError (ROADMAP.md, "JPEG forms and
+image modes octseg reads through cv2 and PIL"): arithmetic-coded streams
+(SOF9, SOF10), YCCK, lossless with subsampled components, and a
+progressive scan script that leaves one of the first ten coefficients
+short of full precision, which libjpeg-turbo's block smoothing
+(``jdcoefct.c``) would change.
 
 The entropy stage (Huffman codes and restart segments to int16 coefficient
-blocks) has two implementations: ``csrc/jpeg_entropy.cc``, host C++ built
-with g++ at first use and loaded with ctypes, which ``decode_jpeg`` uses by
-default, and ``_decode_scan_python``, its plain version, which the tests hold
-it to. Everything after that stage is numpy shared by both.
+blocks, or to lossless samples) has two implementations:
+``csrc/jpeg_entropy.cc``, host C++ built with g++ at first use and loaded
+with ctypes, which ``decode_jpeg`` uses by default, and the
+``_decode_*_python`` functions, its plain versions, which the tests hold it
+to. Everything after that stage is numpy shared by both.
 """
 
 from __future__ import annotations
@@ -46,14 +67,31 @@ ZIGZAG = np.array([
     35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
     58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63])
 
-_UNSUPPORTED_SOF = {
-    0xC2: 'progressive (SOF2)', 0xC3: 'lossless (SOF3)', 0xC5: 'differential (SOF5)',
-    0xC6: 'differential progressive (SOF6)', 0xC7: 'differential lossless (SOF7)',
-    0xC9: 'arithmetic-coded (SOF9)', 0xCA: 'arithmetic-coded progressive (SOF10)',
+# frame markers libjpeg-turbo decodes and the port does not yet
+_NOT_YET_SOF = {0xC9: 'arithmetic-coded (SOF9)', 0xCA: 'arithmetic-coded progressive (SOF10)'}
+# frame markers libjpeg-turbo refuses
+_UNDECODABLE_SOF = {
+    0xC5: 'differential (SOF5)', 0xC6: 'differential progressive (SOF6)',
+    0xC7: 'differential lossless (SOF7)', 0xC8: 'JPG (reserved)',
     0xCB: 'arithmetic-coded lossless (SOF11)', 0xCD: 'differential arithmetic (SOF13)',
     0xCE: 'differential arithmetic progressive (SOF14)',
     0xCF: 'differential arithmetic lossless (SOF15)',
 }
+_MODES = {0xC0: 'sequential', 0xC1: 'sequential', 0xC2: 'progressive', 0xC3: 'lossless'}
+# how many zigzag coefficients decide libjpeg-turbo's block smoothing
+# (jdcoefct.c's SAVED_COEFS)
+_SMOOTHED = 10
+
+
+class UndecodableJPEG(ValueError):
+    """A JPEG form libjpeg-turbo does not decode either (cv2.imdecode
+    returns None, PIL cannot identify it)."""
+
+
+def _not_yet(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f'{what} is not decoded by octseg_torch yet, though libjpeg-turbo decodes it '
+        f'({ROADMAP_ITEM})')
 
 
 class Component(NamedTuple):
@@ -78,6 +116,12 @@ class _Frame:
         self.orientation = 1
         self.coef: List[np.ndarray] = []          # per component (bh, bw, 64) int16
         self.latched_qt: Dict[int, np.ndarray] = {}
+        self.mode = 'sequential'                  # or 'progressive', 'lossless'
+        self.precision = 8
+        # progressive: per component, the Al of the last scan of each zigzag
+        # coefficient (-1: none yet), libjpeg's coef_bits
+        self.coef_bits: List[np.ndarray] = []
+        self.samples: List[np.ndarray] = []       # lossless: per component (H, W) uint8
 
     @property
     def hmax(self) -> int:
@@ -125,117 +169,321 @@ def _segment_bytes(seg: bytes) -> bytes:
     return seg.replace(b'\xff\x00', b'\xff') + bytes(8)
 
 
-def _decode_scan_python(data: bytes, segments: List[Tuple[int, int]], restart: int,
-                        comps, planes: List[np.ndarray], frame: _Frame,
-                        mcus_x: int, mcus_y: int) -> None:
-    """The plain version of ``csrc/jpeg_entropy.cc``: decode one scan's
-    Huffman-coded blocks into ``planes`` (one (bh, bw, 64) int16 array per
-    scan component). ``comps``: (h, v, dc slot, ac slot) per component."""
-    dc_luts = [_huffman_lut(frame.huff_bits[td], frame.huff_vals[td]) for _h, _v, td, _ta in comps]
-    ac_luts = [_huffman_lut(frame.huff_bits[4 + ta], frame.huff_vals[4 + ta])
-               for _h, _v, _td, ta in comps]
-    zigzag = ZIGZAG.tolist()
+class _BitReader:
+    """One restart segment's bits, read as csrc/jpeg_entropy.cc reads them."""
+
+    def __init__(self, seg: bytes):
+        self.d = _segment_bytes(seg)
+        self.pos = 0
+
+    def _window(self) -> int:
+        """24 bits from the byte of ``pos``, shifted so that bit 23 + (pos & 7)
+        is the next one."""
+        i = self.pos >> 3
+        if i + 3 > len(self.d):
+            self.d += bytes(8)      # zero bits past the end
+        d = self.d
+        return (d[i] << 16 | d[i + 1] << 8 | d[i + 2]) << (self.pos & 7)
+
+    def bits(self, n: int) -> int:
+        v = self._window() >> (24 - n) & ((1 << n) - 1)
+        self.pos += n
+        return v
+
+    def huffman(self, lut: List[int]) -> int:
+        e = lut[self._window() >> 8 & 0xFFFF]
+        if e == 0:
+            raise ValueError('corrupt JPEG data: bad Huffman code')
+        self.pos += e >> 8
+        return e & 0xFF
+
+    def extend(self, s: int) -> int:
+        if s == 0:
+            return 0
+        v = self.bits(s)
+        return v - (1 << s) + 1 if v < (1 << (s - 1)) else v
+
+
+def _int16(v: int) -> int:
+    """``v`` stored in libjpeg's 16-bit JCOEF."""
+    return (v + 32768) % 65536 - 32768
+
+
+def _blocks(planes: List[np.ndarray], comps, mcus_x: int, mcus_y: int,
+            segments: List[Tuple[int, int]], restart: int):
+    """(segment index, component, block (64,) view) in decode order: each
+    restart segment's MCUs in raster order, each MCU's components, each
+    component's v x h blocks."""
     total = mcus_x * mcus_y
     per_segment = restart if restart > 0 else total
     flat = [p.reshape(-1, 64) for p in planes]
     mcu = 0
-    for start, end in segments:
-        if mcu >= total:
-            break
-        d = _segment_bytes(data[start:end])
-        pos = 0                     # bit position
-
-        def bits(n: int) -> int:
-            nonlocal d, pos
-            i = pos >> 3
-            if i + 3 > len(d):
-                d += bytes(8)       # zero bits past the end
-            v = ((d[i] << 16 | d[i + 1] << 8 | d[i + 2]) << (pos & 7)) >> (24 - n) & ((1 << n) - 1)
-            pos += n
-            return v
-
-        def huffman(lut: List[int]) -> int:
-            nonlocal d, pos
-            i = pos >> 3
-            if i + 3 > len(d):
-                d += bytes(8)
-            e = lut[((d[i] << 16 | d[i + 1] << 8 | d[i + 2]) << (pos & 7)) >> 8 & 0xFFFF]
-            if e == 0:
-                raise ValueError('corrupt JPEG data: bad Huffman code')
-            pos += e >> 8
-            return e & 0xFF
-
-        def extend(s: int) -> int:
-            if s == 0:
-                return 0
-            v = bits(s)
-            return v - (1 << s) + 1 if v < (1 << (s - 1)) else v
-
-        pred = [0] * len(comps)
+    for s in range(len(segments)):
         for _ in range(min(per_segment, total - mcu)):
             my, mx = divmod(mcu, mcus_x)
             for c, (h, v, _td, _ta) in enumerate(comps):
                 bw = planes[c].shape[1]
                 for by in range(v):
                     for bx in range(h):
-                        block = flat[c][(my * v + by) * bw + mx * h + bx]
-                        block[:] = 0
-                        t = huffman(dc_luts[c])
-                        if t > 16:
-                            raise ValueError('corrupt JPEG data: bad DC category')
-                        pred[c] += extend(t)
-                        block[0] = pred[c]
-                        k = 1
-                        while k < 64:
-                            rs = huffman(ac_luts[c])
-                            r, s = rs >> 4, rs & 15
-                            if s == 0:
-                                if r != 15:
-                                    break
-                                k += 16
-                                continue
-                            k += r
-                            val = extend(s)
-                            if k > 63:
-                                break
-                            block[zigzag[k]] = val
-                            k += 1
+                        yield s, c, flat[c][(my * v + by) * bw + mx * h + bx]
             mcu += 1
+        if mcu >= total:
+            return
+
+
+def _decode_scan_python(data: bytes, segments: List[Tuple[int, int]], restart: int,
+                        comps, planes: List[np.ndarray], frame: _Frame,
+                        mcus_x: int, mcus_y: int) -> None:
+    """The plain version of ``csrc/jpeg_entropy.cc``'s sequential decoder:
+    decode one scan's Huffman-coded blocks into ``planes`` (one (bh, bw, 64)
+    int16 array per scan component). ``comps``: (h, v, dc slot, ac slot)
+    per component."""
+    dc_luts = [_huffman_lut(frame.huff_bits[td], frame.huff_vals[td]) for _h, _v, td, _ta in comps]
+    ac_luts = [_huffman_lut(frame.huff_bits[4 + ta], frame.huff_vals[4 + ta])
+               for _h, _v, _td, ta in comps]
+    zigzag = ZIGZAG.tolist()
+    seg, br, pred = -1, None, []
+    for s, c, block in _blocks(planes, comps, mcus_x, mcus_y, segments, restart):
+        if s != seg:            # a new restart segment: DC predictions restart
+            seg, br, pred = s, _BitReader(data[slice(*segments[s])]), [0] * len(comps)
+        block[:] = 0
+        t = br.huffman(dc_luts[c])
+        if t > 16:
+            raise ValueError('corrupt JPEG data: bad DC category')
+        pred[c] += br.extend(t)
+        block[0] = pred[c]
+        k = 1
+        while k < 64:
+            rs = br.huffman(ac_luts[c])
+            r, sz = rs >> 4, rs & 15
+            if sz == 0:
+                if r != 15:
+                    break
+                k += 16
+                continue
+            k += r
+            val = br.extend(sz)
+            if k > 63:
+                break
+            block[zigzag[k]] = val
+            k += 1
+
+
+def _refine_block(br: _BitReader, lut: List[int], block: np.ndarray, ss: int, se: int,
+                  al: int, eobrun: int, natural: List[int]) -> int:
+    """One block of an AC refinement scan (jdphuff.c decode_mcu_AC_refine);
+    returns the EOB run left."""
+    p1, m1 = 1 << al, -(1 << al)
+
+    def correct(z: int) -> None:
+        if br.bits(1) and (int(block[z]) & p1) == 0:
+            block[z] += p1 if block[z] >= 0 else m1
+
+    k = ss
+    if eobrun == 0:
+        while k <= se:
+            rs = br.huffman(lut)
+            r, sz, v = rs >> 4, rs & 15, 0
+            if sz:
+                v = p1 if br.bits(1) else m1      # a newly nonzero coefficient
+            elif r != 15:
+                eobrun = (1 << r) + (br.bits(r) if r else 0)
+                break
+            # skip r zero coefficients, correcting the nonzero ones met
+            while True:
+                z = natural[k]
+                if block[z] != 0:
+                    correct(z)
+                else:
+                    r -= 1
+                    if r < 0:
+                        break
+                k += 1
+                if k > se:
+                    break
+            if v:
+                block[natural[k]] = v
+            k += 1
+    if eobrun > 0:
+        for k in range(k, se + 1):  # the band's rest: correction bits only
+            if block[natural[k]] != 0:
+                correct(natural[k])
+        eobrun -= 1
+    return eobrun
+
+
+def _decode_progressive_python(data: bytes, segments: List[Tuple[int, int]], restart: int,
+                               comps, planes: List[np.ndarray], frame: _Frame,
+                               mcus_x: int, mcus_y: int, ss: int, se: int, ah: int,
+                               al: int) -> None:
+    """The plain version of ``csrc/jpeg_entropy.cc``'s progressive decoder:
+    one scan of band ``ss``..``se`` with successive-approximation bits
+    ``ah``, ``al``, added to what ``planes`` hold."""
+    if ss == 0:
+        luts = [None if ah else _huffman_lut(frame.huff_bits[td], frame.huff_vals[td])
+                for _h, _v, td, _ta in comps]
+    else:
+        luts = [_huffman_lut(frame.huff_bits[4 + ta], frame.huff_vals[4 + ta])
+                for _h, _v, _td, ta in comps]
+    natural = ZIGZAG.tolist() + [63] * 16   # libjpeg's guard entries
+    seg, br, pred, eobrun = -1, None, [], 0
+    for s, c, block in _blocks(planes, comps, mcus_x, mcus_y, segments, restart):
+        if s != seg:            # a new restart segment: DC and EOB run restart
+            seg, br, pred, eobrun = s, _BitReader(data[slice(*segments[s])]), [0] * len(comps), 0
+        if ss == 0 and ah == 0:
+            t = br.huffman(luts[c])
+            if t > 16:
+                raise ValueError('corrupt JPEG data: bad DC category')
+            pred[c] += br.extend(t)
+            block[0] = _int16(pred[c] << al)
+        elif ss == 0:
+            if br.bits(1):
+                block[0] |= 1 << al
+        elif ah == 0:
+            if eobrun > 0:
+                eobrun -= 1
+                continue
+            k = ss
+            while k <= se:
+                rs = br.huffman(luts[c])
+                r, sz = rs >> 4, rs & 15
+                if sz:
+                    k += r
+                    block[natural[k]] = _int16(br.extend(sz) << al)
+                elif r == 15:
+                    k += 15
+                else:
+                    eobrun = (1 << r) + (br.bits(r) if r else 0) - 1
+                    break
+                k += 1
+        else:
+            eobrun = _refine_block(br, luts[c], block, ss, se, al, eobrun, natural)
+
+
+_PREDICTORS = {
+    1: lambda ra, rb, rc: ra, 2: lambda ra, rb, rc: rb, 3: lambda ra, rb, rc: rc,
+    4: lambda ra, rb, rc: ra + rb - rc, 5: lambda ra, rb, rc: ra + ((rb - rc) >> 1),
+    6: lambda ra, rb, rc: rb + ((ra - rc) >> 1), 7: lambda ra, rb, rc: (ra + rb) >> 1,
+}
+
+
+def _decode_lossless_python(data: bytes, segments: List[Tuple[int, int]],
+                            rows_per_segment: int, comps, planes: List[np.ndarray],
+                            frame: _Frame, predictor: int, pt: int) -> None:
+    """The plain version of ``csrc/jpeg_entropy.cc``'s lossless decoder: one
+    scan into ``planes`` ((H, W) uint8 per scan component)."""
+    luts = [_huffman_lut(frame.huff_bits[td], frame.huff_vals[td]) for _h, _v, td, _ta in comps]
+    height, width = planes[0].shape
+    rows = rows_per_segment or height
+    initial = 1 << (frame.precision - pt - 1)
+    predict = _PREDICTORS[predictor]
+    prev = [[0] * width for _ in comps]
+    y = 0
+    for start, end in segments:
+        br = _BitReader(data[start:end])
+        for r in range(min(rows, height - y)):
+            diff = [[0] * width for _ in comps]
+            for x in range(width):
+                for c in range(len(comps)):
+                    t = br.huffman(luts[c])
+                    if t > 16:
+                        raise ValueError('corrupt JPEG data: bad difference category')
+                    diff[c][x] = 32768 if t == 16 else br.extend(t)
+            for c, d in enumerate(diff):
+                out = [0] * width
+                out[0] = (d[0] + (initial if r == 0 else prev[c][0])) & 0xFFFF
+                for x in range(1, width):
+                    p = out[x - 1] if r == 0 else predict(out[x - 1], prev[c][x], prev[c][x - 1])
+                    out[x] = (d[x] + p) & 0xFFFF
+                planes[c][y] = [(v << pt) & 0xFF for v in out]
+                prev[c] = out
+            y += 1
+        if y >= height:
+            return
+
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# argument types of csrc/jpeg_entropy.cc's entry points
+_SIGNATURES = {
+    'octseg_jpeg_decode_scan': [_P] * 3 + [_I] * 3 + [_P] * 8 + [_I] * 2,
+    'octseg_jpeg_decode_progressive_scan': [_P] * 3 + [_I] * 3 + [_P] * 8 + [_I] * 6,
+    'octseg_jpeg_decode_lossless_scan': [_P] * 3 + [_I] * 5 + [_P] * 4 + [_I] * 3,
+}
 
 
 def _entropy_library() -> ctypes.CDLL:
     from octseg_torch.ops.kernels import _build
 
     lib = _build.load_host('jpeg_entropy')
-    fn = lib.octseg_jpeg_decode_scan
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = argtypes
     return lib
+
+
+def _call_native(name: str, data: bytes, segments: List[Tuple[int, int]], *args) -> None:
+    """Call ``name`` of csrc/jpeg_entropy.cc on the scan's bytes and
+    segments; numpy arrays among ``args`` go by pointer, a list of them as
+    an array of pointers."""
+    fn = getattr(_entropy_library(), name)
+    buf = np.frombuffer(data, np.uint8)
+    starts = np.array([s for s, _e in segments], np.int64)
+    ends = np.array([e for _s, e in segments], np.int64)
+    keep = [buf, starts, ends]
+    call = [buf.ctypes.data, starts.ctypes.data, ends.ctypes.data, len(segments)]
+    for a in args:
+        if isinstance(a, list):
+            ptrs = (ctypes.c_void_p * len(a))(*[p.ctypes.data for p in a])
+            keep.append(ptrs)
+            call.append(ctypes.cast(ptrs, ctypes.c_void_p))
+        elif isinstance(a, np.ndarray):
+            a = np.ascontiguousarray(a)
+            keep.append(a)
+            call.append(a.ctypes.data)
+        else:
+            call.append(a)
+    rc = fn(*call)
+    if rc != 0:
+        raise ValueError({-1: 'corrupt JPEG data: bad Huffman code',
+                          -2: 'bad Huffman table'}.get(rc, f'entropy decoder error {rc}'))
+
+
+def _scan_arrays(comps, planes: List[np.ndarray]):
+    """h, v, blocks_w, dc slots, ac slots as int32 arrays."""
+    cols = [np.array(col, np.int32) for col in zip(*comps)]
+    return cols[0], cols[1], np.array([p.shape[1] for p in planes], np.int32), cols[2], cols[3]
 
 
 def _decode_scan_native(data: bytes, segments: List[Tuple[int, int]], restart: int,
                         comps, planes: List[np.ndarray], frame: _Frame,
                         mcus_x: int, mcus_y: int) -> None:
     """``_decode_scan_python``'s contract, in ``csrc/jpeg_entropy.cc``."""
-    fn = _entropy_library().octseg_jpeg_decode_scan
-    buf = np.frombuffer(data, np.uint8)
-    starts = np.array([s for s, _e in segments], np.int64)
-    ends = np.array([e for _s, e in segments], np.int64)
-    cols = [np.array(col, np.int32) for col in zip(*comps)]   # h, v, dc slot, ac slot
-    blocks_w = np.array([p.shape[1] for p in planes], np.int32)
-    ptrs = (ctypes.c_void_p * len(planes))(*[p.ctypes.data for p in planes])
-    bits = np.ascontiguousarray(frame.huff_bits)
-    vals = np.ascontiguousarray(frame.huff_vals)
-    rc = fn(buf.ctypes.data, starts.ctypes.data, ends.ctypes.data, len(segments), restart,
-            len(planes), cols[0].ctypes.data, cols[1].ctypes.data, blocks_w.ctypes.data,
-            ctypes.cast(ptrs, ctypes.c_void_p), cols[2].ctypes.data, cols[3].ctypes.data,
-            bits.ctypes.data, vals.ctypes.data, mcus_x, mcus_y)
-    if rc != 0:
-        raise ValueError({-1: 'corrupt JPEG data: bad Huffman code',
-                          -2: 'bad Huffman table'}.get(rc, f'entropy decoder error {rc}'))
+    h, v, bw, td, ta = _scan_arrays(comps, planes)
+    _call_native('octseg_jpeg_decode_scan', data, segments, restart, len(planes), h, v, bw,
+                 planes, td, ta, frame.huff_bits, frame.huff_vals, mcus_x, mcus_y)
+
+
+def _decode_progressive_native(data: bytes, segments: List[Tuple[int, int]], restart: int,
+                               comps, planes: List[np.ndarray], frame: _Frame,
+                               mcus_x: int, mcus_y: int, ss: int, se: int, ah: int,
+                               al: int) -> None:
+    """``_decode_progressive_python``'s contract, in ``csrc/jpeg_entropy.cc``."""
+    h, v, bw, td, ta = _scan_arrays(comps, planes)
+    _call_native('octseg_jpeg_decode_progressive_scan', data, segments, restart, len(planes),
+                 h, v, bw, planes, td, ta, frame.huff_bits, frame.huff_vals, mcus_x, mcus_y,
+                 ss, se, ah, al)
+
+
+def _decode_lossless_native(data: bytes, segments: List[Tuple[int, int]],
+                            rows_per_segment: int, comps, planes: List[np.ndarray],
+                            frame: _Frame, predictor: int, pt: int) -> None:
+    """``_decode_lossless_python``'s contract, in ``csrc/jpeg_entropy.cc``."""
+    td = np.array([c[2] for c in comps], np.int32)
+    height, width = planes[0].shape
+    _call_native('octseg_jpeg_decode_lossless_scan', data, segments, rows_per_segment,
+                 len(planes), width, height, planes, td, frame.huff_bits, frame.huff_vals,
+                 predictor, pt, frame.precision)
 
 
 # ------------------------------ marker parsing ------------------------------
@@ -280,12 +528,48 @@ def _exif_orientation(seg: bytes) -> int:
     return 1
 
 
+def _check_dc_symbols(frame: _Frame, slots, most: int) -> None:
+    """libjpeg refuses a DC (or lossless) table with a symbol above ``most``."""
+    for t in slots:
+        n = int(frame.huff_bits[t, 1:].sum())
+        if (frame.huff_vals[t, :n] > most).any():
+            raise UndecodableJPEG(f'JPEG DC Huffman table {t} has a symbol above {most}')
+
+
+def _check_progression(ns: int, ss: int, se: int, ah: int, al: int) -> None:
+    """jdphuff.c's scan parameter checks."""
+    bad = se != 0 if ss == 0 else (ss > se or se > 63 or ns != 1)
+    if (ah != 0 and al != ah - 1) or al > 13 or bad:
+        raise UndecodableJPEG(f'bad progressive JPEG scan: Ss={ss} Se={se} Ah={ah} Al={al}')
+
+
+def _lossless_scan(frame: _Frame, buf: bytes, segments, comps, idxs,
+                   ss: int, se: int, ah: int, al: int, native: bool) -> None:
+    if ss < 1 or ss > 7 or se != 0 or ah != 0 or al >= frame.precision:
+        raise UndecodableJPEG(f'bad lossless JPEG scan: Ss={ss} Se={se} Ah={ah} Al={al}')
+    if frame.hmax != 1 or frame.vmax != 1:
+        raise _not_yet('lossless JPEG with subsampled components')
+    _check_dc_symbols(frame, {c[2] for c in comps}, 16)
+    restart = frame.restart_interval
+    if restart % frame.width:
+        raise UndecodableJPEG(f'lossless JPEG restart interval {restart} is not a multiple '
+                              f'of the row ({frame.width} samples)')
+    if not frame.samples:
+        frame.samples = [np.zeros((frame.height, frame.width), np.uint8)
+                         for _ in frame.components]
+    planes = [frame.samples[i] for i in idxs]
+    decode = _decode_lossless_native if native else _decode_lossless_python
+    decode(buf, segments, restart // frame.width, comps, planes, frame, ss, al)
+
+
 def _decode_scan(frame: _Frame, buf: bytes, seg: bytes, pos: int, native: bool) -> int:
     """Parse one SOS segment and decode its scan; returns the offset of the
     marker after the scan."""
     if not frame.components:
         raise ValueError('JPEG scan before its frame header')
     ns = seg[0]
+    ss, se, ah, al = seg[1 + 2 * ns], seg[2 + 2 * ns], seg[3 + 2 * ns] >> 4, seg[3 + 2 * ns] & 15
+    lossless = frame.mode == 'lossless'
     comps, planes, idxs = [], [], []
     for i in range(ns):
         cs, tables = seg[1 + 2 * i], seg[2 + 2 * i]
@@ -293,26 +577,69 @@ def _decode_scan(frame: _Frame, buf: bytes, seg: bytes, pos: int, native: bool) 
         if idx is None:
             raise ValueError(f'JPEG scan names component {cs}, which the frame lacks')
         c = frame.components[idx]
-        if c.tq not in frame.qt:
-            raise ValueError(f'JPEG component {cs} uses quantization table {c.tq}, '
-                             f'which is not defined')
-        # libjpeg latches a component's table at its first scan
-        frame.latched_qt.setdefault(idx, frame.qt[c.tq].copy())
+        if not lossless:
+            if c.tq not in frame.qt:
+                raise ValueError(f'JPEG component {cs} uses quantization table {c.tq}, '
+                                 f'which is not defined')
+            # libjpeg latches a component's table at its first scan
+            frame.latched_qt.setdefault(idx, frame.qt[c.tq].copy())
+            planes.append(frame.coef[idx])
         # a scan of one component is not interleaved: its MCU is one block
         h, v = (c.h, c.v) if ns > 1 else (1, 1)
         comps.append((h, v, tables >> 4, tables & 15))
-        planes.append(frame.coef[idx])
         idxs.append(idx)
+    end, segments = _scan_end(buf, pos)
+    if lossless:
+        _lossless_scan(frame, buf, segments, comps, idxs, ss, se, ah, al, native)
+        return end
     if ns > 1:
         mcus_x = -(-frame.width // (8 * frame.hmax))
         mcus_y = -(-frame.height // (8 * frame.vmax))
     else:
         ch, cw = frame.comp_size(frame.components[idxs[0]])
         mcus_x, mcus_y = -(-cw // 8), -(-ch // 8)
-    end, segments = _scan_end(buf, pos)
-    decode = _decode_scan_native if native else _decode_scan_python
-    decode(buf, segments, frame.restart_interval, comps, planes, frame, mcus_x, mcus_y)
+    if frame.mode == 'sequential':
+        _check_dc_symbols(frame, {c[2] for c in comps}, 15)
+        decode = _decode_scan_native if native else _decode_scan_python
+        decode(buf, segments, frame.restart_interval, comps, planes, frame, mcus_x, mcus_y)
+        return end
+    _check_progression(ns, ss, se, ah, al)
+    if ss == 0 and ah == 0:
+        _check_dc_symbols(frame, {c[2] for c in comps}, 15)
+    for idx in idxs:
+        frame.coef_bits[idx][ss:se + 1] = al
+    decode = _decode_progressive_native if native else _decode_progressive_python
+    decode(buf, segments, frame.restart_interval, comps, planes, frame, mcus_x, mcus_y,
+           ss, se, ah, al)
     return end
+
+
+def _start_frame(frame: _Frame, marker: int, seg: bytes) -> None:
+    """An SOF0-3 segment: the frame header, checked as libjpeg-turbo checks
+    it, and the coefficient planes."""
+    precision, height, width, nf = struct.unpack_from('>BHHB', seg, 0)
+    frame.mode = _MODES[marker]
+    if frame.mode == 'lossless' and not 2 <= precision <= 8:
+        raise UndecodableJPEG(f'{precision}-bit lossless JPEG (cv2 and PIL decode 2 to 8 bits)')
+    if frame.mode != 'lossless' and precision != 8:
+        raise UndecodableJPEG(f'{precision}-bit DCT JPEG (cv2 and PIL decode 8 bits)')
+    if height == 0 or width == 0:
+        raise UndecodableJPEG('JPEG height from a DNL marker, or an empty image')
+    if nf not in (1, 3, 4):
+        raise UndecodableJPEG(f'{nf}-component JPEG (cv2 and PIL decode 1, 3 or 4)')
+    frame.precision, frame.height, frame.width = precision, height, width
+    frame.components = [Component(seg[6 + 3 * i], seg[7 + 3 * i] >> 4,
+                                  seg[7 + 3 * i] & 15, seg[8 + 3 * i])
+                        for i in range(nf)]
+    if any(c.h not in (1, 2, 3, 4) or c.v not in (1, 2, 3, 4) for c in frame.components):
+        raise ValueError('bad JPEG sampling factors')
+    if frame.mode == 'lossless':
+        return
+    mcus_x = -(-width // (8 * frame.hmax))
+    mcus_y = -(-height // (8 * frame.vmax))
+    frame.coef = [np.zeros((mcus_y * c.v, mcus_x * c.h, 64), np.int16)
+                  for c in frame.components]
+    frame.coef_bits = [np.full(64, -1, np.int64) for _ in frame.components]
 
 
 def _parse_and_decode(buf: bytes, native: bool) -> _Frame:
@@ -334,36 +661,18 @@ def _parse_and_decode(buf: bytes, native: bool) -> _Frame:
             break
         if marker in (0x01, 0xD8) or 0xD0 <= marker <= 0xD7:
             continue            # parameterless
+        if marker in _UNDECODABLE_SOF or marker in (0xDE, 0xDF) or 0xF0 <= marker <= 0xFD \
+                or 0x02 <= marker <= 0xBF:
+            raise UndecodableJPEG(
+                f'JPEG marker 0x{marker:02X} '
+                f'({_UNDECODABLE_SOF.get(marker, "reserved or hierarchical")})')
+        if marker in _NOT_YET_SOF:
+            raise _not_yet(f'{_NOT_YET_SOF[marker]} JPEG')
         (length,) = struct.unpack_from('>H', buf, pos)
         seg = buf[pos + 2:pos + length]
         pos += length
-        if marker in _UNSUPPORTED_SOF:
-            raise NotImplementedError(
-                f'{_UNSUPPORTED_SOF[marker]} JPEG is not decoded: octseg_torch decodes '
-                f'baseline and extended sequential Huffman JPEG ({ROADMAP_ITEM})')
-        if marker in (0xC0, 0xC1):
-            precision, height, width, nf = struct.unpack_from('>BHHB', seg, 0)
-            if precision != 8:
-                raise NotImplementedError(
-                    f'{precision}-bit JPEG is not decoded: octseg_torch decodes 8-bit '
-                    f'samples ({ROADMAP_ITEM})')
-            if height == 0:
-                raise NotImplementedError(f'JPEG height from a DNL marker ({ROADMAP_ITEM})')
-            if nf not in (1, 3):
-                raise NotImplementedError(
-                    f'{nf}-component JPEG is not decoded: octseg_torch decodes gray and '
-                    f'3-component colour ({ROADMAP_ITEM})')
-            frame.height, frame.width = height, width
-            frame.components = [Component(seg[6 + 3 * i], seg[7 + 3 * i] >> 4,
-                                          seg[7 + 3 * i] & 15, seg[8 + 3 * i])
-                                for i in range(nf)]
-            if any(c.h not in (1, 2, 3, 4) or c.v not in (1, 2, 3, 4)
-                   for c in frame.components):
-                raise ValueError('bad JPEG sampling factors')
-            mcus_x = -(-width // (8 * frame.hmax))
-            mcus_y = -(-height // (8 * frame.vmax))
-            frame.coef = [np.zeros((mcus_y * c.v, mcus_x * c.h, 64), np.int16)
-                          for c in frame.components]
+        if marker in _MODES:
+            _start_frame(frame, marker, seg)
         elif marker == 0xC4:
             i = 0
             while i < len(seg):
@@ -402,11 +711,23 @@ def _parse_and_decode(buf: bytes, native: bool) -> _Frame:
         elif marker == 0xDA:
             pos = _decode_scan(frame, buf, seg, pos, native)
             scans += 1
-        elif marker == 0xDC:
-            raise NotImplementedError(f'JPEG DNL marker ({ROADMAP_ITEM})')
     if not scans:
         raise ValueError('JPEG stream without a scan')
     return frame
+
+
+def _check_smoothing(frame: _Frame) -> None:
+    """libjpeg-turbo smooths a progressive image's blocks (jdcoefct.c
+    ``smoothing_ok``) when every component has a DC scan and nonzero
+    quantizers for its first ten coefficients, and a scan script left one
+    of those coefficients in any component short of full precision."""
+    ok = all(frame.coef_bits[i][0] >= 0 and i in frame.latched_qt
+             and (frame.latched_qt[i][ZIGZAG[:_SMOOTHED]] != 0).all()
+             for i in range(len(frame.components)))
+    if ok and any((b[1:_SMOOTHED] != 0).any() for b in frame.coef_bits):
+        raise _not_yet('a progressive JPEG whose scans leave one of the first ten '
+                       'coefficients short of full precision (libjpeg-turbo smooths its '
+                       'blocks)')
 
 
 # --------------------------- after the entropy stage ------------------------
@@ -548,42 +869,83 @@ def ycc_to_rgb(y: np.ndarray, cb: np.ndarray, cr: np.ndarray) -> np.ndarray:
 
 
 def _colour_space(frame: _Frame) -> str:
-    """libjpeg's jpeg_color_space guess for a 3-component frame."""
+    """libjpeg-turbo's jpeg_color_space guess for 3 and 4 components."""
+    if len(frame.components) == 4:
+        return 'CMYK' if frame.adobe_transform in (None, 0) else 'YCCK'
     if frame.jfif:
         return 'YCbCr'
     if frame.adobe_transform is not None:
         return 'RGB' if frame.adobe_transform == 0 else 'YCbCr'
     ids = tuple(c.ident for c in frame.components)
-    return 'RGB' if ids == (82, 71, 66) else 'YCbCr'
+    return 'RGB' if ids == (82, 71, 66) or frame.mode == 'lossless' else 'YCbCr'
 
 
 def _assemble(frame: _Frame) -> np.ndarray:
-    hmax, vmax = frame.hmax, frame.vmax
-    full = []
-    for idx, c in enumerate(frame.components):
-        if hmax % c.h or vmax % c.v:
-            raise NotImplementedError(
-                f'fractional JPEG sampling ({c.h}x{c.v} of {hmax}x{vmax}) is not decoded, '
-                f'as libjpeg does not ({ROADMAP_ITEM})')
-        up = upsample(_plane(frame, idx), hmax // c.h, vmax // c.v)
-        full.append(up[:frame.height, :frame.width])
+    if frame.mode == 'lossless':
+        full = frame.samples
+    else:
+        if frame.mode == 'progressive':
+            _check_smoothing(frame)
+        hmax, vmax = frame.hmax, frame.vmax
+        full = []
+        for idx, c in enumerate(frame.components):
+            if hmax % c.h or vmax % c.v:
+                raise NotImplementedError(
+                    f'fractional JPEG sampling ({c.h}x{c.v} of {hmax}x{vmax}) is not decoded, '
+                    f'as libjpeg does not ({ROADMAP_ITEM})')
+            up = upsample(_plane(frame, idx), hmax // c.h, vmax // c.v)
+            full.append(up[:frame.height, :frame.width])
     if len(full) == 1:
         return full[0]
-    if _colour_space(frame) == 'RGB':
+    space = _colour_space(frame)
+    if frame.mode == 'lossless' and space not in ('RGB', 'CMYK'):
+        raise UndecodableJPEG(f'{space} in a lossless JPEG (libjpeg-turbo converts no colour '
+                              f'there)')
+    if space == 'YCCK':
+        raise _not_yet('YCCK JPEG (Adobe transform 2)')
+    if space in ('RGB', 'CMYK'):
         return np.stack(full, axis=-1)
     return ycc_to_rgb(*full)
+
+
+def cmyk_to_rgb_cv2(cmyk: np.ndarray) -> np.ndarray:
+    """(H, W, 4) CMYK samples as libjpeg hands them over -> (H, W, 3) RGB, as
+    cv2's icvCvt_CMYK2BGR_8u_C4C3R makes them (in BGR): each of C, M, Y
+    becomes k - ((255 - x) * k >> 8)."""
+    x = cmyk.astype(np.int32)
+    k = x[..., 3:]
+    return (k - ((255 - x[..., :3]) * k >> 8)).astype(np.uint8)
 
 
 def decode_jpeg(data: bytes, native: bool = True, orient: bool = False) -> np.ndarray:
     """A JPEG stream -> (H, W, 3) RGB uint8, or (H, W) for one component, as
     libjpeg-turbo decodes it by default (``PIL.Image.open`` and
-    ``cv2.imdecode(..., IMREAD_UNCHANGED)`` give the same, cv2 in BGR).
-    ``native``: the C++ entropy decoder (built with g++ at first use; a
-    failed build raises); False: its plain Python version. ``orient``: apply
-    the EXIF orientation, as ``cv2.imread`` does."""
+    ``cv2.imdecode(..., IMREAD_UNCHANGED)`` give the same, cv2 in BGR); a
+    CMYK stream as cv2 converts it to three channels. ``native``: the C++
+    entropy decoder (built with g++ at first use; a failed build raises);
+    False: its plain Python version. ``orient``: apply the EXIF orientation,
+    as ``cv2.imread`` does. Raises UndecodableJPEG for what libjpeg-turbo
+    refuses too, NotImplementedError for what it decodes and this module
+    does not yet."""
     frame = _parse_and_decode(bytes(data), native)
     img = _assemble(frame)
+    if img.ndim == 3 and img.shape[2] == 4:
+        img = cmyk_to_rgb_cv2(img)
     return apply_orientation(img, frame.orientation) if orient else img
+
+
+def decode_jpeg_pil(data: bytes) -> Tuple[str, np.ndarray]:
+    """(mode, pixels) as ``PIL.Image.open`` holds a JPEG stream: 'L', 'RGB',
+    or 'CMYK' with libjpeg's samples inverted (Pillow's 'CMYK;I' raw mode).
+    PIL reads 8-bit samples only, so a lossless stream of fewer bits, which
+    cv2 decodes, raises UndecodableJPEG here."""
+    frame = _parse_and_decode(bytes(data), True)
+    if frame.precision != 8:
+        raise UndecodableJPEG(f'{frame.precision}-bit JPEG (PIL reads 8-bit samples only)')
+    img = _assemble(frame)
+    if img.ndim == 2:
+        return 'L', img
+    return ('CMYK', 255 - img) if img.shape[2] == 4 else ('RGB', img)
 
 
 def apply_orientation(img: np.ndarray, orientation: int) -> np.ndarray:

@@ -43,7 +43,7 @@ import octseg_torch
 from octseg_torch.core.registry import CLASS_COLORS_RGB, CLASS_IDS
 from octseg_torch.data.draw import equalize_hist, rgb_to_gray
 from octseg_torch.data.image import (PilImage, _decode_png, encode_png, open_image, paste_solid,
-                                     pil_resize, resize_linear_u8, write_png)
+                                     pil_resize, resize_linear_u8, resize_linear_u16, write_png)
 
 if TYPE_CHECKING:
     import torch
@@ -131,12 +131,15 @@ def convert_numpy_to_base64(mask: np.ndarray) -> str:
 
 def preprocessing_img(img: PilImage, input_size: int) -> np.ndarray:
     """The model input of one image: ``np.array(img)`` (palette indices for
-    P), ``cv2.cvtColor(RGB2BGR)`` (three channels reversed, alpha dropped,
-    one channel replicated), ``cv2.resize`` INTER_LINEAR to input_size;
-    (input_size, input_size, 3) uint8."""
+    P), ``cv2.cvtColor(RGB2BGR)`` (three channels reversed, a fourth one
+    dropped: CMYK's K too; one channel replicated), ``cv2.resize``
+    INTER_LINEAR to input_size; (input_size, input_size, 3) uint8, or uint16
+    for an I;16 image."""
     px = img.pixels
-    bgr = np.repeat(px[..., None], 3, axis=-1) if px.ndim == 2 else px[..., 2::-1]
-    return resize_linear_u8(np.ascontiguousarray(bgr), (input_size, input_size))
+    bgr = np.ascontiguousarray(np.repeat(px[..., None], 3, axis=-1) if px.ndim == 2
+                               else px[..., 2::-1])
+    resize = resize_linear_u16 if bgr.dtype == np.uint16 else resize_linear_u8
+    return resize(bgr, (input_size, input_size))
 
 
 def data_processing(data_path: str, save_dir: str, output_size: Sequence[int]

@@ -197,7 +197,8 @@ class InferenceEngine:
         ``device_preprocess`` (the pullback variant): uint8 (B, H, W, 1 or
         3) RGB frames at native size, made BGR and resized on the device;
         otherwise (the image variant) uint8 (B, S, S, 3) BGR frames at the
-        model's input size S, made float on the device."""
+        model's input size S (int32 from I;16 images), made float on the
+        device."""
         model, model_cfg = self._bundle(model_dir_name)
         input_size = int(model_cfg['input_size'])
         # octseg-trained manifests say normalize=true; an absent key is the
@@ -406,6 +407,8 @@ class InferenceEngine:
             for start in range(0, n, eb):
                 frames = np.stack(list(pool.map(lambda img: preprocessing_img(img, size),
                                                 images[start:start + eb])))
+                if frames.dtype == np.uint16:   # I;16 images; made float on the device
+                    frames = frames.astype(np.int32)
                 dev = torch.from_numpy(frames).to(self.device)
                 packed = torch.cat([fwd(dev[s:s + chunk]) for s in range(0, len(frames), chunk)])
                 result[start:start + len(frames)] = unpack_mask_bits(packed.cpu().numpy(), out_w)

@@ -13,6 +13,7 @@ import pytest
 from octseg.analyze import analysis as ref
 from octseg_torch.analyze import analysis
 from tests.test_torch_contours import CASES, lumen_mask
+from tests.torch_threads import torch_threads_share  # noqa: F401
 
 
 def _masks():

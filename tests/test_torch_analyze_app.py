@@ -42,6 +42,7 @@ from octseg_torch.core.config import Config
 from octseg_torch.data import dicom
 from octseg_torch.data.tiffio import read_tiff
 from tests.test_torch_engine import CLASSES, make_models_dir
+from tests.torch_threads import torch_threads_share  # noqa: F401
 
 SIDE, N_FRAMES = 120, 9
 # frames holding each class (channel = class id - 1): runs that span and skip

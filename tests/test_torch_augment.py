@@ -16,6 +16,7 @@ import torch
 from octseg.ops import augment as jax_augment
 from octseg_torch.ops import augment
 from octseg_torch.ops.warp import apply_homography, matmul3, pixel_grid
+from tests.torch_threads import torch_threads_share  # noqa: F401
 
 
 def jax_draws(key, h, w, channels=3):

@@ -37,6 +37,7 @@ from octseg_torch.models.common import set_dropout_generator
 from octseg_torch.models.convert import variables_to_state_dict
 from octseg_torch.train.train import _loss_and_logits, init_model
 from tests.test_torch_models import _random_variables
+from tests.torch_threads import torch_threads_share  # noqa: F401
 
 FAMILIES = [('Unet', 'resnet18'), ('LinkNet', 'efficientnet-b0'),
             ('Unet', 'timm-regnetx_002'), ('UnetPlusPlus', 'resnet18')]

@@ -37,6 +37,10 @@ from octseg_torch.explain.cam import JET_RGB
 from octseg_torch.models import create_model
 from octseg_torch.models.convert import variables_to_state_dict
 
+# This module keeps torch's default thread count, not tests/torch_threads.py's
+# share: the port's GradCAM++ map misses octseg's by 0.048 at 1 or 2 threads
+# (ROADMAP.md C, "GradCAM++ parity depends on torch's thread count").
+
 CAM_ATOL = 1e-3
 ABLATION_ATOL = 1e-2
 SIZE = 64

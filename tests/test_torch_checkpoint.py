@@ -28,6 +28,7 @@ from octseg_torch.models.convert import state_dict_to_variables, variables_to_st
 from octseg_torch.models.encoders import create_encoder
 from octseg_torch.train import checkpoint as torch_checkpoint
 from octseg_torch.train.train import init_model
+from tests.torch_threads import torch_threads_share  # noqa: F401
 
 
 def _tree(seed=0):

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 
 from octseg_torch.analyze import contours as C
+from tests.torch_threads import torch_threads_share  # noqa: F401
 
 
 def _disc(h, w, cy, cx, r):

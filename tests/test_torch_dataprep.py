@@ -37,6 +37,7 @@ from octseg_torch.core.pipeline import STAGE_FILE, Pipeline
 from octseg_torch.data import convert_dicoms, convert_int_to_cv, convert_sly_to_int
 from octseg_torch.data import extract_metadata, mask_processor, stack_images
 from octseg_torch.data.utils import convert_base64_to_numpy, convert_numpy_to_base64
+from tests.torch_threads import torch_threads_share  # noqa: F401
 
 SIZE = 96          # DICOM frame side
 OUT = 80           # converted frame side (a downscale through resize_keep_aspect)

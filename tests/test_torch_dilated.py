@@ -20,6 +20,7 @@ from octseg_torch.models import create_model
 from octseg_torch.models.common import Conv2dSame
 from octseg_torch.models.convert import variables_to_state_dict
 from tests.test_torch_models import _random_variables
+from tests.torch_threads import torch_threads_share  # noqa: F401
 
 ARCH_OF_STRIDE = {8: 'DeepLabV3', 16: 'DeepLabV3Plus'}
 

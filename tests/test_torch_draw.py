@@ -23,6 +23,7 @@ from scipy import ndimage
 
 from octseg_torch.analyze import contours as C
 from octseg_torch.data import draw as D
+from tests.torch_threads import torch_threads_share  # noqa: F401
 
 
 def _fill_both(h, w, polys):

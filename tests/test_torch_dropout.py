@@ -16,6 +16,7 @@ import torch
 
 from octseg_torch.models import create_model
 from octseg_torch.models.common import Dropout, Dropout2d, set_dropout_generator
+from tests.torch_threads import torch_threads_share  # noqa: F401
 
 
 def _draw(layer, x, seed):

@@ -26,6 +26,7 @@ from octseg.parallel.sharding import make_mesh
 from octseg_torch import resolve_device
 from octseg_torch.infer.engine import CHUNK_MARGIN, MODELS_META, InferenceEngine, choose_chunk
 from octseg_torch.train.checkpoint import initialize_model_dir
+from tests.torch_threads import torch_threads_share  # noqa: F401
 
 CLASSES = ['Lumen', 'Fibrous cap', 'Lipid core', 'Vasa vasorum']
 OUT = (48, 56)

@@ -28,6 +28,7 @@ from octseg_torch.infer.engine import CHUNK_MARGIN, InferenceEngine
 from octseg_torch.train.checkpoint import initialize_model_dir, load_weights, save_weights
 from tests.test_torch_engine import CASES, CLASSES, OUT, assert_masks_agree, jax_probabilities
 from tests.test_torch_engine import make_frames
+from tests.torch_threads import torch_threads_share  # noqa: F401
 
 FAMILIES = (('LM', ['Lumen'], 'UnetPlusPlus', 'resnet18'),
             ('FC_LC', ['Lipid core', 'Fibrous cap'], 'LinkNet', 'efficientnet-b0'),

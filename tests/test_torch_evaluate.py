@@ -22,6 +22,7 @@ from octseg_torch.ops.normalize import normalize_imagenet
 from octseg_torch.train import evaluate
 from octseg_torch.train.data import OCTDataset
 from octseg_torch.train.train import train_model
+from tests.torch_threads import torch_threads_share  # noqa: F401
 
 TOL = 1e-5
 NEAR = 1e-4

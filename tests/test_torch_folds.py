@@ -16,6 +16,7 @@ from octseg_torch.core.config import Config
 from octseg_torch.data.synth import make_synth_fold
 from octseg_torch.train import folds
 from octseg_torch.train.train import train_model
+from tests.torch_threads import torch_threads_share  # noqa: F401
 
 MODEL_FILES = ('weights.ckpt', 'resume.ckpt', 'metrics.csv', 'scalars.jsonl', 'config.json')
 

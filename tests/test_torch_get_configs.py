@@ -25,6 +25,7 @@ from octseg.tune import get_configs as jax_get_configs
 from octseg_torch.core.config import Config
 from octseg_torch.data import xlsxio
 from octseg_torch.tune import get_configs
+from tests.torch_threads import torch_threads_share  # noqa: F401
 
 FIELDS = ['trial', 'architecture', 'encoder', 'optimizer', 'lr', 'input_size', 'val_f1',
           'val_loss', 'epochs_done', 'duration_s', 'status']

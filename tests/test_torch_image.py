@@ -16,6 +16,7 @@ from octseg_torch.data.image import (
     pil_resize_bicubic,
     write_png,
 )
+from tests.torch_threads import torch_threads_share  # noqa: F401
 
 
 @pytest.mark.parametrize('in_hw,out_wh', [

@@ -6,13 +6,15 @@ runs the port's CPU predict path on a tiny pullback and on an image
 directory (a PNG and a JPEG, bf16), a CPU training epoch (augmentation
 on, through the C++ loader) on a tiny synthetic fold, a DeepLabV3Plus forward
 (a dilated encoder), a GP-EI suggestion of the tuner after three
-observations, one NativeLoader batch and one GradCAM map, and must not
+observations, one NativeLoader batch, one GradCAM map and the
+reference-checkpoint import of a Lightning-style state dict, and must not
 have loaded any of them (nor sklearn, which octseg's tuner fits its GP
 with); a second one runs the analyze app (demo and inference analysis,
 frame contours, the figures, the HTTP app) and the data-prep chain (every
 stage's entry point, the pipeline runner and its stage file) on tiny inputs, and
 must not have loaded them, nor pandas or matplotlib; an AST scan checks
-every import statement of the package and of chip_smoke.py.
+every import statement of the package, of chip_smoke.py and of the
+stream writer it imports (tests/jpeg_streams.py).
 """
 
 import ast
@@ -83,9 +85,19 @@ native = next(iter(NativeLoader(OCTDataset(f'{tmp}/fold/train', ['Lumen'], 32), 
 x = np.random.default_rng(2).normal(0, 1, (32, 32, 3)).astype(np.float32)
 cam = CAMProcessor(create_model('Unet', 'resnet18').eval()).extract_activation_map(
     x, 0, np.ones((32, 32), np.float32))
+# the reference-checkpoint import of a Lightning-style SMP state dict
+from octseg_torch.models.convert_torch import convert_reference_model_dir
+os.makedirs(f'{tmp}/reference')
+torch.save({'state_dict': {f'model.{k}': v for k, v in
+                           create_model('Unet', 'resnet18').state_dict().items()}, 'epoch': 1},
+           f'{tmp}/reference/weights.ckpt')
+shutil.copy(f'{tmp}/models/LM/config.json', f'{tmp}/reference')
+converted = sorted(os.listdir(convert_reference_model_dir(f'{tmp}/reference',
+                                                          f'{tmp}/converted')))
 banned = %r
 loaded = sorted(m for m in sys.modules if m.split('.')[0] in banned)
 print(json.dumps({'frames': result['frames'], 'outputs': sorted(os.listdir(f'{tmp}/out')),
+                  'converted': converted,
                   'images': images['frames'],
                   'image_outputs': sorted(os.listdir(f'{tmp}/out_images')),
                   'train_steps': summary['train_steps'],
@@ -115,6 +127,7 @@ def test_cpu_predict_path_loads_no_banned_module(tmp_path):
     assert result['train_steps'] == 2
     assert {'metrics.csv', 'weights.ckpt', 'resume.ckpt', 'config.json'} <= set(
         result['model_files'])
+    assert result['converted'] == ['config.json', 'weights.ckpt']
     assert result['zoo_shape'] == [1, 1, 32, 32]
     assert result['gp_point']['architecture'] in ('FPN', 'PAN')
     assert result['loader'] == 'native'
@@ -220,7 +233,8 @@ def test_app_and_data_prep_load_no_banned_module(tmp_path):
 
 
 def _python_files():
-    files = [os.path.join(REPO, 'chip_smoke.py')]
+    # chip_smoke.py writes its lossless streams with tests/jpeg_streams.py
+    files = [os.path.join(REPO, 'chip_smoke.py'), os.path.join(REPO, 'tests', 'jpeg_streams.py')]
     for root, _dirs, names in os.walk(os.path.join(REPO, 'octseg_torch')):
         files += [os.path.join(root, n) for n in names if n.endswith('.py')]
     return sorted(files)

@@ -7,8 +7,10 @@ version, must give exactly PIL's ``Image.open`` and cv2's ``imdecode``
 (BGR flipped) on every case: 4:4:4, 4:2:2, 4:2:0, 4:4:0 and 4:1:1, gray,
 sizes that are not multiples of 8 or 16, quality 50/75/95, optimised
 Huffman tables, restart intervals, an Adobe-marker RGB stream and one that
-says RGB by its component ids only. Progressive, lossless, arithmetic-coded
-and 12-bit streams raise.
+says RGB by its component ids only. An arithmetic-coded stream, which cv2
+decodes, raises NotImplementedError; 12-bit and malformed lossless streams,
+which cv2 refuses too, raise UndecodableJPEG. Progressive, lossless and
+CMYK streams are in tests/test_torch_jpeg_forms.py.
 
 ``write_fixture`` wrote ``tests/torch_fixtures/jpeg/`` (with cv2 5.0 and
 Pillow 12.1): a JPEG Baseline DICOM pullback of 16 OCT-like 704x704 colour
@@ -30,8 +32,10 @@ from PIL import Image
 
 from octseg.data import dicom as jax_dicom
 from octseg_torch.data import dicom
-from octseg_torch.data.jpeg import decode_jpeg
+from octseg_torch.data.jpeg import UndecodableJPEG, decode_jpeg
 from octseg_torch.ops.kernels import _build
+from tests.jpeg_streams import write_encapsulated_dicom
+from tests.torch_threads import torch_threads_share  # noqa: F401
 
 FIXTURE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'torch_fixtures', 'jpeg')
 PULLBACK = os.path.join(FIXTURE_DIR, 'pullback.dcm')
@@ -68,38 +72,12 @@ def natural_image(h: int, w: int, seed: int) -> np.ndarray:
     return np.clip(img, 0, 255).astype(np.uint8)
 
 
-def _element(group: int, elem: int, vr: str, data: bytes) -> bytes:
-    if len(data) % 2:
-        data += b'\x00' if vr in ('OB', 'UI') else b' '
-    head = struct.pack('<HH', group, elem) + vr.encode()
-    if vr in ('OB',):
-        return head + b'\x00\x00' + struct.pack('<I', len(data)) + data
-    return head + struct.pack('<H', len(data)) + data
-
-
 def write_jpeg_dicom(path: str, fragments_per_frame, rows: int, cols: int, spp: int,
                      n_frames=None, ts: str = jax_dicom.JPEG_BASELINE) -> None:
     """A DICOM file (explicit VR little endian) whose pixel data is
     encapsulated: an empty basic offset table, then each frame's fragments.
     ``n_frames`` None leaves NumberOfFrames out (a single-frame image)."""
-    meta = _element(0x0002, 0x0010, 'UI', ts.encode())
-    body = b''
-    if n_frames is not None:
-        body += _element(0x0028, 0x0008, 'IS', str(n_frames).encode())
-    body += _element(0x0028, 0x0002, 'US', struct.pack('<H', spp))
-    body += _element(0x0028, 0x0004, 'CS', b'YBR_FULL_422' if spp == 3 else b'MONOCHROME2')
-    body += _element(0x0028, 0x0010, 'US', struct.pack('<H', rows))
-    body += _element(0x0028, 0x0011, 'US', struct.pack('<H', cols))
-    body += _element(0x0028, 0x0100, 'US', struct.pack('<H', 8))
-    px = (struct.pack('<HH', 0x7FE0, 0x0010) + b'OB\x00\x00' + struct.pack('<I', 0xFFFFFFFF)
-          + struct.pack('<HHI', 0xFFFE, 0xE000, 0))
-    for frame in fragments_per_frame:
-        for frag in frame:
-            frag = frag + b'\x00' * (len(frag) % 2)
-            px += struct.pack('<HHI', 0xFFFE, 0xE000, len(frag)) + frag
-    px += struct.pack('<HHI', 0xFFFE, 0xE0DD, 0)
-    with open(path, 'wb') as f:
-        f.write(b'\x00' * 128 + b'DICM' + meta + body + px)
+    write_encapsulated_dicom(path, fragments_per_frame, rows, cols, spp, ts, n_frames)
 
 
 def _cv2_jpeg(img_rgb: np.ndarray, *params) -> bytes:
@@ -198,17 +176,18 @@ def test_unsupported_forms_raise():
     img = natural_image(16, 16, seed=4)
     baseline = _cv2_jpeg(img)
     sof = baseline.index(b'\xff\xc0')
-    bio = io.BytesIO()
-    Image.fromarray(img).save(bio, 'JPEG', progressive=True)
-    forms = {
-        'progressive': bio.getvalue(),
+    refused = {   # forms cv2 refuses too (imdecode returns None)
         '12-bit': baseline[:sof + 4] + b'\x0c' + baseline[sof + 5:],   # the precision byte
-        'lossless': baseline[:sof + 1] + b'\xc3' + baseline[sof + 2:],
-        'arithmetic': baseline[:sof + 1] + b'\xc9' + baseline[sof + 2:],
+        'lossless with a DCT scan': baseline[:sof + 1] + b'\xc3' + baseline[sof + 2:],
     }
-    for form, data in forms.items():
-        with pytest.raises(NotImplementedError, match=r'ROADMAP.md, "JPEG forms and image modes'):
+    for form, data in refused.items():
+        assert cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_UNCHANGED) is None, form
+        with pytest.raises(UndecodableJPEG):
             decode_jpeg(data, native=False)
+    arithmetic = baseline[:sof + 1] + b'\xc9' + baseline[sof + 2:]
+    assert cv2.imdecode(np.frombuffer(arithmetic, np.uint8), cv2.IMREAD_UNCHANGED) is not None
+    with pytest.raises(NotImplementedError, match=r'ROADMAP.md, "JPEG forms and image modes'):
+        decode_jpeg(arithmetic, native=False)
     with pytest.raises(ValueError, match='not a JPEG'):
         decode_jpeg(b'\x89PNG\r\n\x1a\n')
 
@@ -268,6 +247,8 @@ def test_jpeg_dicom_faults(tmp_path):
     write_jpeg_dicom(path, [[data], [data], [data]], 16, 16, 3, n_frames=2)
     with pytest.raises(dicom.DicomError, match='3 pixel-data fragments for 2 frames'):
         dicom.dcmread(path).pixel_array
+    # the stream decides, not the transfer syntax: a baseline stream under
+    # JPEG 2000's UID decodes, as cv2 decodes it for octseg
     write_jpeg_dicom(path, [[data]], 16, 16, 3, n_frames=1, ts='1.2.840.10008.1.2.4.90')
-    with pytest.raises(NotImplementedError, match='1.2.840.10008.1.2.4.90.*ROADMAP.md'):
-        dicom.dcmread(path).pixel_array
+    np.testing.assert_array_equal(dicom.dcmread(path).pixel_array,
+                                  jax_dicom.dcmread(path).pixel_array)

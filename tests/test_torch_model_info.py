@@ -40,6 +40,7 @@ from octseg_torch.core.config import load_config
 from octseg_torch.models import SUPPORTED_ARCHITECTURES, SUPPORTED_ENCODERS, create_model
 from octseg_torch.models import get_model_info
 from octseg_torch.models.encoders import encoder_out_channels
+from tests.torch_threads import torch_threads_share  # noqa: F401
 
 # port / octseg at 64 px: the band stated before measuring was 0.75-1.0
 # (PERF.md, Findings); it missed, since XLA skips padded taps. Measured on these

@@ -22,6 +22,7 @@ from octseg.models import create_model as jax_create_model
 from octseg_torch.models import create_model
 from octseg_torch.models.common import Conv2dSame
 from octseg_torch.models.convert import variables_to_state_dict
+from tests.torch_threads import torch_threads_share  # noqa: F401
 
 
 def _random_variables(fm, x, seed):

@@ -45,6 +45,7 @@ from octseg_torch.ops.kernels import _build
 from octseg_torch.train.data import OCTDataset, PrefetchLoader
 from octseg_torch.train.native_loader import NativeLoader
 from octseg_torch.train.train import train_model
+from tests.torch_threads import torch_threads_share  # noqa: F401
 
 CLASSES = ['Lumen', 'Fibrous cap']
 SIZE = 48

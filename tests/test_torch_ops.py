@@ -15,6 +15,7 @@ from octseg.ops import bitpack as jax_bitpack
 from octseg.ops import normalize as jax_normalize
 from octseg.ops import resize as jax_resize
 from octseg_torch.ops import bitpack, normalize, resize
+from tests.torch_threads import torch_threads_share  # noqa: F401
 
 
 @pytest.fixture

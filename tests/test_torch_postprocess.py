@@ -23,6 +23,7 @@ from octseg.ops.pallas.postprocess import fused_overlay_postprocess as jax_fused
 from octseg_torch.data import utils as torch_utils
 from octseg_torch.ops import morphology
 from octseg_torch.ops.kernels import postprocess
+from tests.torch_threads import torch_threads_share  # noqa: F401
 
 
 def _disc_masks(rng, m, h, w):

@@ -21,6 +21,7 @@ from octseg.infer import predict as jax_predict
 from octseg_torch.core.config import Config
 from octseg_torch.infer import predict
 from tests.test_torch_engine import CLASSES, NEAR, jax_probabilities, make_models_dir
+from tests.torch_threads import torch_threads_share  # noqa: F401
 
 OUT = [48, 48]
 REACH = 7

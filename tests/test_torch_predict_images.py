@@ -15,7 +15,9 @@ resize of each mode the port reads (bicubic for L and RGB, bicubic on
 premultiplied alpha for RGBA, NEAREST for P), ``preprocessing_img`` against
 ``np.array`` + ``cv2.cvtColor(RGB2BGR)`` + ``cv2.resize``, and
 ``data_processing``'s names, order and masks. Which other modes octseg
-accepts is written down by a test: the port raises for each of them.
+accepts is written down by a test: the port reads I;16 PNGs and CMYK JPEGs
+as PIL and cv2 make them, and raises for 1-bit and gray-alpha PNGs, which
+octseg's cv2.cvtColor rejects.
 """
 
 import os
@@ -39,6 +41,7 @@ from octseg_torch.infer import predict
 from octseg_torch.train.checkpoint import initialize_model_dir, load_weights, save_weights
 from tests.test_torch_engine import _jax_model
 from tests.test_torch_predict import REACH, _dilate
+from tests.torch_threads import torch_threads_share  # noqa: F401
 
 CLASSES = ['Lumen', 'Fibrous cap', 'Lipid core', 'Vasa vasorum']
 OUT = [80, 80]
@@ -221,6 +224,11 @@ OCTSEG_ACCEPTS = {'I;16': True, 'CMYK': True, '1': False, 'LA': False}
 
 @pytest.mark.parametrize('mode', list(OCTSEG_ACCEPTS))
 def test_other_modes_raise_with_the_gap_written_down(tmp_path, mode):
+    """The port reads what octseg accepts as PIL and cv2 make it, and raises
+    where octseg's cv2.cvtColor does. cv2 resizes 16-bit images through IPP
+    (the opencv-python default), which rounds about one value in a thousand
+    the other way: the port is cv2's generic code exactly, and within 1 of
+    IPP's."""
     path = _mode_file(tmp_path, mode)
     assert Image.open(path).mode == mode
     try:
@@ -230,8 +238,31 @@ def test_other_modes_raise_with_the_gap_written_down(tmp_path, mode):
     except cv2.error:
         accepted = False
     assert accepted == OCTSEG_ACCEPTS[mode]
-    with pytest.raises(NotImplementedError, match='ROADMAP.md, "JPEG forms and image modes'):
-        open_image(path)
+    if not accepted:
+        with pytest.raises(NotImplementedError, match='ROADMAP.md, "JPEG forms and image modes'):
+            open_image(path)
+        return
+    pil, ours = Image.open(path), open_image(path)
+    assert ours.mode == mode
+    np.testing.assert_array_equal(ours.pixels, np.asarray(pil))
+    np.testing.assert_array_equal(ours.to_rgb(), np.asarray(pil.convert('RGB')))
+    for size in ((16, 16), (7, 30), (48, 40)):
+        want_img, got_img = pil.resize(size), pil_resize(ours, size)
+        np.testing.assert_array_equal(got_img.pixels, np.asarray(want_img))
+        np.testing.assert_array_equal(got_img.to_rgb(), np.asarray(want_img.convert('RGB')))
+        for s in (16, 64):
+            got = utils.preprocessing_img(got_img, s)
+            want = jax_utils.preprocessing_img(want_img.copy(), s)
+            assert got.dtype == want.dtype and got.shape == want.shape == (s, s, 3)
+            if mode == 'I;16':
+                assert np.abs(got.astype(np.int64) - want).max() <= 1
+                ipp = cv2.ipp.useIPP()
+                cv2.ipp.setUseIPP(False)
+                try:
+                    want = jax_utils.preprocessing_img(want_img.copy(), s)
+                finally:
+                    cv2.ipp.setUseIPP(ipp)
+            np.testing.assert_array_equal(got, want)
 
 
 def test_file_and_dir_lists_match_jax(tmp_path):

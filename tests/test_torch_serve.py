@@ -32,6 +32,7 @@ from octseg_torch.core.registry import CLASS_IDS
 from octseg_torch.data import dicom
 from octseg_torch.infer import client, predict, serve
 from tests.test_torch_engine import CLASSES, make_models_dir
+from tests.torch_threads import torch_threads_share  # noqa: F401
 
 OUT = [48, 48]
 BLOCK = 4   # five frames stream as two blocks

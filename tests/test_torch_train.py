@@ -30,6 +30,7 @@ from octseg_torch.train.losses import dice_loss_from_logits
 from octseg_torch.train.metrics import compute_metrics
 from octseg_torch.train.state import TrainState, make_optimizer
 from octseg_torch.train.train import _loss_and_logits, make_train_step
+from tests.torch_threads import torch_threads_share  # noqa: F401
 
 CLASSES = 4
 

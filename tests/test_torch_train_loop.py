@@ -26,6 +26,7 @@ from octseg_torch.models import create_model
 from octseg_torch.ops.kernels import warp as k2
 from octseg_torch.train import checkpoint as ckpt
 from octseg_torch.train.train import train_model
+from tests.torch_threads import torch_threads_share  # noqa: F401
 
 CLASSES = ['Lumen', 'Fibrous cap', 'Lipid core', 'Vasa vasorum']
 

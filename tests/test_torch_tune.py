@@ -40,6 +40,7 @@ from octseg_torch.core.config import Config, load_config
 from octseg_torch.data.synth import make_synth_fold
 from octseg_torch.tune import tune
 from octseg_torch.tune.search import BayesianSearch, GaussianProcess, HyperBand, SearchSpace
+from tests.torch_threads import torch_threads_share  # noqa: F401
 
 
 @pytest.fixture(scope='module')

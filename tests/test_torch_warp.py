@@ -18,6 +18,7 @@ from octseg.ops import warp as jax_warp
 from octseg.ops.pallas.resample import warp_pair_2pass
 from octseg_torch.ops import warp
 from octseg_torch.ops.kernels import warp as k2
+from tests.torch_threads import torch_threads_share  # noqa: F401
 
 
 def _batch(rng, n, h, w, ci=3, cm=4):

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 
 from tests.test_torch_models import _forward_pair
+from tests.torch_threads import torch_threads_share  # noqa: F401
 
 ZOO = ['FPN', 'PSPNet', 'PAN', 'MAnet', 'DeepLabV3', 'DeepLabV3Plus']
 CLASSES = 2

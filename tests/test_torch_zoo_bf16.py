@@ -24,6 +24,7 @@ from octseg_torch.train.train import init_model
 from tests.test_torch_bf16 import _assert_stats_equal, _bf16_triple, _step_grads
 from tests.test_torch_zoo import ZOO, _size
 from tests.test_torch_zoo_convert import one_thread  # noqa: F401 (a fixture)
+from tests.torch_threads import torch_threads_share  # noqa: F401
 
 # encoders: resnet at output strides 8 (DeepLabV3), 16 (PAN) and 32, and
 # SAME-dilated efficientnet at 16 (DeepLabV3Plus)

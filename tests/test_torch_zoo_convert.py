@@ -40,6 +40,7 @@ from octseg_torch.train.train import train_model
 from tests.test_torch_checkpoint import _assert_tree_equal, _random_state_dict
 from tests.test_torch_models import _random_variables
 from tests.test_torch_zoo import ZOO, _size
+from tests.torch_threads import torch_threads_share  # noqa: F401
 
 PAIRS = [(a, 'resnet18') for a in ZOO] + [
     ('FPN', 'efficientnet-b0'), ('PSPNet', 'timm-regnetx_002'), ('PAN', 'timm-regnetx_002'),

@@ -19,6 +19,7 @@ import torch
 
 from octseg_torch.models import SUPPORTED_ARCHITECTURES, SUPPORTED_ENCODERS, create_model
 from octseg_torch.models.convert import state_dict_to_variables
+from tests.torch_threads import torch_threads_share  # noqa: F401
 
 
 @pytest.mark.parametrize('arch', SUPPORTED_ARCHITECTURES)

@@ -61,6 +61,7 @@ from octseg_torch.train.train import _loss_and_logits
 from tests.test_torch_train import GRAD_GAP
 from tests.test_torch_zoo import CLASSES, _size
 from tests.test_torch_zoo_convert import one_thread  # noqa: F401 (a fixture)
+from tests.torch_threads import torch_threads_share  # noqa: F401
 
 FRAMES = 4
 ZERO_GRAD = 1e-6

@@ -10,6 +10,7 @@ import pytest
 
 from tests.test_torch_zoo_convert import one_thread  # noqa: F401 (a fixture)
 from tests.test_torch_zoo_train import check_bf16_remat_step, check_train_step
+from tests.torch_threads import torch_threads_share  # noqa: F401
 
 
 @pytest.mark.parametrize('arch', ['PAN', 'DeepLabV3', 'DeepLabV3Plus'])
