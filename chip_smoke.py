@@ -25,6 +25,16 @@ Phases, each raising on failure (exit code != 0):
      shapes timed warm and with a cold L2 (their inputs fit in the L2)
      beside the plain version, the bound and F.grid_sample (a yardstick the
      port never calls);
+  4a. int8 kernels: K5 (activation quantization) and K4 (the int8
+     convolution) against their plain versions, bit for bit, on K5's own
+     cases (float32 and bfloat16, an odd channel count, a 1x1 map, .5
+     boundaries, zeros) and at batch 2 on every distinct eligible
+     convolution call of the three winners (69) and INT8_EXTRA_CONVS
+     (dilations 2 and 4, asymmetric SAME, channels not a multiple of 32 or
+     of 16, a 1x1 map); each call's K4 time; each winner's heaviest call at
+     INT8_TIME_BATCH frames timed beside the bounds, the plain versions
+     and yardsticks (torch._int_mm on the im2col matrix, cuDNN's fp32 and
+     bf16 convolutions, torch's amax);
   5. the predict path at full width: the reference's hybrid ensemble, three
      model dirs with random weights from seeds 0-2 (LM UnetPlusPlus/resnet101
      at 512, FC_LC LinkNet/efficientnet-b7 at 896, VV Unet/timm-regnetx_064
@@ -52,6 +62,11 @@ Phases, each raising on failure (exit code != 0):
      ensemble with softened heads in bf16 against fp32, per class the share
      of differing pixels where the fp32 probability is at least BF16_BAND
      from 0.5 within BF16_MASK_SHARE; the predict path with bf16=true;
+  5c'. int8 predict: the pullback through predict with int8=true on 5c's
+     softened ensemble, K4 and K5 launched eligible calls x forwards times;
+     an int8 engine's masks against fp32's (INT8_BAND, INT8_MASK_SHARE),
+     each model's block under the cap of its predicted peak / CHUNK_MARGIN;
+     the three families at 64 px, int8 logits card against CPU;
   5d. serve: configs/serve.yaml unchanged (bf16, block 128, four classes,
      1000x1000) over the softened ensemble, the service in process on
      127.0.0.1:0; the 32-frame pullback streamed in format=masks (cold and
@@ -61,8 +76,9 @@ Phases, each raising on failure (exit code != 0):
      masks; the C++ and Python tracers equal on every channel that counts
      (ms per 1000x1000 mask of each); the port's client in masks mode (K1
      once per streamed block; render seconds) against a local bf16 predict,
-     both with cuDNN's deterministic algorithms, PNGs byte-identical; 503 with Retry-After while the admission
-     semaphore is held; /healthz says gpu, /metrics counts the requests;
+     both with cuDNN's deterministic algorithms, PNGs byte-identical; 503
+     with Retry-After while the admission semaphore is held; /healthz says
+     gpu, /metrics counts the requests;
   5e. jpeg forms (run after 5a): the progressive and lossless entropy
      decoders in C++ against their Python versions, bit-exact, on the
      committed progressive JPEGs and on lossless streams written in the run
@@ -107,9 +123,12 @@ Phases, each raising on failure (exit code != 0):
      model dir and its fold's test split on the card, and on the CPU:
      metrics within EVAL_ATOL, (sample, class) masks equal where no
      probability is within 1e-4 of 0.5; seconds;
+  8c'. int8 evaluate: evaluate with int8=true on 8c's model dir and fold,
+     each class's Dice against exact (INT8_DICE_BAND, recorded);
   8d. folds: the fold driver with configs/train.yaml over two synthetic
      folds (8 train and 4 test frames at 1000 px), one epoch each:
      folds_summary.csv and each fold dir's files, K2 once per step;
+  8e. vis: draw_loss_plot and draw_boxplots on 8d's two metrics.csv;
   9. Unet/resnet18 at 64 px, GPU (TF32 off) against CPU, from the same
      weights: the first step's gradients, three SGD steps and three Adam
      steps, with controls that must fail;
@@ -2676,6 +2695,470 @@ def data_prep_path(tmp: str):
     return record
 
 
+# the int8 path (PR 15): K4 and K5 against their plain versions, the int8
+# predict path, int8 evaluate
+INT8_OPS = 1.979e15           # H100 SXM int8 tensor cores, dense (NVIDIA data sheet)
+INT8_TIME_BATCH = 8           # frames of the timed K4 / K5 calls
+# int8 against fp32 predict on the softened winners (bounds stated in
+# PERF.md before the first run): per class, the share of pixels whose masks
+# differ where the fp32 probability is at least INT8_BAND from 0.5 must stay
+# within INT8_MASK_SHARE; int8 evaluate's Dice against exact is recorded
+# against INT8_DICE_BAND
+INT8_BAND = 0.1
+INT8_MASK_SHARE = 1e-3
+INT8_DICE_BAND = 1e-2
+# kernel cases beyond the winners' shapes: (kh, kw, cin, cout, sh, sw, dh,
+# dw, top, bottom, left, right, h, w): dilations 2 and 4, XLA SAME's
+# asymmetric padding, channel counts that are not multiples of 32 or of 16
+# (20 is padded to 24), odd sizes, a 1x1 map
+INT8_EXTRA_CONVS = ((3, 3, 256, 256, 1, 1, 2, 2, 2, 2, 2, 2, 33, 31),
+                    (3, 3, 256, 128, 1, 1, 4, 4, 4, 4, 4, 4, 30, 29),
+                    (3, 3, 64, 128, 2, 2, 1, 1, 0, 1, 0, 1, 32, 32),
+                    (5, 5, 40, 56, 2, 2, 1, 1, 1, 2, 1, 2, 27, 26),
+                    (3, 3, 20, 100, 1, 1, 1, 1, 1, 1, 1, 1, 17, 15),
+                    (3, 3, 72, 45, 2, 2, 1, 1, 1, 1, 1, 1, 19, 21),
+                    (1, 1, 2408, 100, 1, 1, 1, 1, 0, 0, 0, 0, 1, 1))
+
+
+def int8_conv_calls(arch: str, encoder: str, size: int, classes: int):
+    """The eligible convolutions of one forward of ``arch/encoder`` at
+    ``size`` px, as the model calls them: a Counter of (kh, kw, cin, cout,
+    sh, sw, dh, dw, top, bottom, left, right, h, w). The model runs on the
+    meta device with the int8 path replaced by a shape-only convolution."""
+    import collections
+
+    import torch
+    import torch.nn.functional as F
+
+    from octseg_torch.models import create_model
+    from octseg_torch.ops import quantize
+
+    calls = collections.Counter()
+
+    def shape_only(conv, x, pads):
+        cout, cin, kh, kw = conv.weight.shape
+        (top, bottom), (left, right) = pads
+        calls[(kh, kw, cin, cout, *conv.stride, *conv.dilation, top, bottom, left, right,
+               *x.shape[2:])] += 1
+        return F.conv2d(F.pad(x, (left, right, top, bottom)), conv.weight, conv.bias,
+                        conv.stride, 0, conv.dilation)
+
+    real = quantize.quantized_conv
+    quantize.quantized_conv = shape_only
+    try:
+        with torch.device('meta'):
+            model = create_model(arch, encoder, classes=classes).eval()
+            with torch.no_grad():
+                quantize.apply_int8(model, torch.empty(1, 3, size, size))
+    finally:
+        quantize.quantized_conv = real
+    return calls
+
+
+def int8_case(torch, call, batch: int, seed: int):
+    """Inputs of one convolution call on the card: (x NCHW float32, weight,
+    bias) from ``seed``."""
+    kh, kw, cin, cout, *_rest, h, w = call
+    gen = torch.Generator(device='cuda').manual_seed(seed)
+    x = torch.randn(batch, cin, h, w, device='cuda', generator=gen) * 3
+    weight = torch.randn(cout, cin, kh, kw, device='cuda', generator=gen) / (kh * kw * cin) ** 0.5
+    bias = torch.randn(cout, device='cuda', generator=gen) * 0.1
+    return x, weight, bias
+
+
+def int8_operands(torch, call, x, weight):
+    """(xq, sa, wq, scale, stride, pads, dilation) of one call, through K5
+    and the module's weight quantization."""
+    from octseg_torch.ops.kernels import quantize as k5
+    from octseg_torch.ops.quantize import divide, padded_channels, quantize_weight
+
+    _kh, _kw, cin, _cout, sh, sw, dh, dw, top, bottom, left, right, _h, _w = call
+    wq, swc = quantize_weight(weight, padded_channels(cin))
+    xq, sa = k5.quantize_activation(x, wq.shape[3])
+    return (xq, sa, wq, divide(sa * swc, 127.0 * 127.0), (sh, sw), ((top, bottom), (left, right)),
+            (dh, dw))
+
+
+def k5_cases(torch):
+    """K5's own cases: float32 and bfloat16, an odd channel count, a 1x1
+    map, .5 boundaries of x * 127 / sa (max |x| 127, every other value
+    k + 0.5), all zeros."""
+    gen = torch.Generator(device='cuda').manual_seed(7)
+    halves = torch.randint(-126, 126, (2, 64, 16, 16), device='cuda', generator=gen) + 0.5
+    halves.view(-1)[5] = -127.0
+    cases = {'odd C 37, 13x11': torch.randn(2, 37, 13, 11, device='cuda', generator=gen),
+             '1x1 map, C 2408': torch.randn(2, 2408, 1, 1, device='cuda', generator=gen),
+             'halves': halves,
+             'zeros': torch.zeros(2, 24, 5, 7, device='cuda'),
+             'large 8x256x128x128': torch.randn(8, 256, 128, 128, device='cuda', generator=gen)}
+    return {**{f'{k} f32': v for k, v in cases.items()},
+            **{f'{k} bf16': v.to(torch.bfloat16) for k, v in cases.items()}}
+
+
+def k4_bound_ms(call, batch: int, out_bytes: int = 4):
+    """(bound ms, 'bytes' or 'operations') of K4 on one call: 2 M N K
+    operations at the int8 rate against its bytes (xq, wq, scale and bias
+    read once, the output written once) at the memory rate."""
+    from octseg_torch.ops.kernels.int8_conv import output_size
+    from octseg_torch.ops.quantize import padded_channels
+
+    kh, kw, cin, cout, sh, sw, dh, dw, top, bottom, left, right, h, w = call
+    cp = padded_channels(cin)
+    m = batch * output_size(h, kh, sh, dh, (top, bottom)) * output_size(w, kw, sw, dw,
+                                                                        (left, right))
+    ops_ms = 2 * m * cout * kh * kw * cp / INT8_OPS * 1e3
+    bytes_ms = (batch * h * w * cp + cout * kh * kw * cp + 8 * cout + m * cout * out_bytes
+                ) / HBM_BYTES_PER_S * 1e3
+    return max(ops_ms, bytes_ms), 'operations' if ops_ms >= bytes_ms else 'bytes'
+
+
+def check_int8_kernels(torch):
+    """K5 and K4 against their plain versions on the card, bit for bit:
+    K5 (int8 values and sa) on its own cases and on the input of every
+    call; K4 at batch 2 over every distinct eligible convolution call of
+    the three winners and INT8_EXTRA_CONVS, the sums (float32 of them with
+    scale 1, exact below 2**24) and the float32 and bfloat16 outputs. Then
+    each call's K4 time at batch 2, and at INT8_TIME_BATCH each winner's
+    heaviest call timed beside its bound, the plain version and yardsticks
+    no single call matches (torch._int_mm on the unfolded input; cuDNN's
+    float32 (TF32 off) and bfloat16 convolutions; torch's amax for K5)."""
+    from octseg_torch.ops.kernels import int8_conv as k4
+    from octseg_torch.ops.kernels import quantize as k5
+    from octseg_torch.ops.kernels.int8_conv import epilogue, int32_sums_plain
+    from octseg_torch.ops.kernels.quantize import quantize_activation_plain
+    from octseg_torch.ops.quantize import padded_channels
+
+    def same_bits(a, b):
+        return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+            a.view(torch.int16 if a.dtype == torch.bfloat16 else torch.int32),
+            b.view(torch.int16 if b.dtype == torch.bfloat16 else torch.int32))
+
+    errors = {'k4': 0.0, 'k5': 0.0}
+
+    def k5_exact(x, channels):
+        xq, sa = k5.quantize_activation(x, channels)
+        pxq, psa = quantize_activation_plain(x, channels)
+        torch.cuda.synchronize()
+        errors['k5'] = max(errors['k5'], float((xq.int() - pxq.int()).abs().max()),
+                           float((sa - psa).abs()))
+        return bool(torch.equal(xq, pxq)) and same_bits(sa.view(1), psa.view(1)), xq, sa
+
+    def k4_exact(got, want):
+        errors['k4'] = max(errors['k4'], float((got.float() - want.float()).abs().max()))
+        return same_bits(got, want)
+
+    record = {'k5_cases': {}, 'models': {}}
+    for name, x in k5_cases(torch).items():
+        exact, xq, sa = k5_exact(x, padded_channels(x.shape[1]))
+        record['k5_cases'][name] = {'shape': list(x.shape), 'exact': exact, 'sa': float(sa)}
+        if not exact:
+            raise AssertionError(f'K5 disagrees with its plain version on {name}')
+    calls = {}
+    for name, classes, arch, encoder, size in ENSEMBLE:
+        calls[name] = int8_conv_calls(arch, encoder, size, len(classes))
+        record['models'][name] = {'model': f'{arch}/{encoder}', 'input_size': size,
+                                  'eligible_calls': sum(calls[name].values()),
+                                  'distinct_calls': len(calls[name])}
+    distinct = sorted(set().union(*calls.values()) | set(INT8_EXTRA_CONVS))
+    per_call, max_sum = [], 0
+    for i, call in enumerate(distinct):
+        x, weight, bias = int8_case(torch, call, 2, i)
+        k5_ok, _xq, _sa = k5_exact(x, padded_channels(call[2]))
+        xq, sa, wq, scale, stride, pads, dil = int8_operands(torch, call, x, weight)
+        sums = int32_sums_plain(xq, wq, stride, pads, dil)
+        ones = torch.ones_like(scale)
+        got_sums = k4.int8_conv2d(xq, wq, ones, None, stride, pads, dil, torch.float32)
+        outs_ok = all(k4_exact(k4.int8_conv2d(xq, wq, scale, b, stride, pads, dil, dt),
+                               epilogue(sums, scale, b, dt))
+                      for dt in (torch.float32, torch.bfloat16) for b in (bias, None))
+        torch.cuda.synchronize()
+        max_sum = max(max_sum, int(sums.abs().max()))
+        sums_ok = max_sum < 2 ** 24 and k4_exact(got_sums, sums.float())
+        if not (k5_ok and sums_ok and outs_ok):
+            raise AssertionError(f'K4/K5 disagree with their plain versions on {call}: '
+                                 f'K5 {k5_ok}, sums {sums_ok}, outputs {outs_ok}')
+        bound, by = k4_bound_ms(call, 2)
+        ms = time_ms(torch, lambda: k4.int8_conv2d(xq, wq, scale, bias, stride, pads, dil),
+                     runs=11, warmup=2, hold=True)
+        per_call.append({'call': list(call), 'ms': ms, 'bound_ms': bound, 'bound_by': by,
+                         'uses': {n: c[call] for n, c in calls.items() if call in c}})
+    log(f'K4/K5: {len(distinct)} distinct calls at batch 2 bit-exact with the plain versions '
+        f'(largest |sum| {max_sum}); K5 cases {list(record["k5_cases"])} exact')
+    record.update(distinct_calls=len(distinct), max_abs_sum=max_sum, per_call_batch2=per_call,
+                  k4_max_abs_err=errors['k4'], k5_max_abs_err=errors['k5'])
+    for name in calls:
+        # each model's K4 time per 2 frames: every eligible call at batch 2
+        rows = [r for r in per_call if name in r['uses']]
+        record['models'][name]['k4_ms_per_2_frames'] = sum(r['ms'] * r['uses'][name]
+                                                           for r in rows)
+        record['models'][name]['k4_bound_ms_per_2_frames'] = sum(
+            r['bound_ms'] * r['uses'][name] for r in rows)
+    timed = {}
+    for name, c in calls.items():
+        call = max(c, key=lambda k: k[0] * k[1] * k[2] * k[3] * k[12] * k[13] / (k[4] * k[5]))
+        timed[name] = time_int8_call(torch, call, INT8_TIME_BATCH, len(distinct) + 1)
+        record['models'][name]['timed'] = timed[name]
+    heaviest = max(timed.values(), key=lambda r: r['k4']['bound_ms'])
+    record.update(k4=heaviest['k4'], k5=heaviest['k5'], timed_call=heaviest['call'])
+    return record
+
+
+def time_int8_call(torch, call, batch: int, seed: int):
+    """One call at ``batch`` frames: K5 and K4 timed beside their bounds,
+    their plain versions and their yardsticks."""
+    import torch.nn.functional as F
+
+    from octseg_torch.ops.kernels import int8_conv as k4
+    from octseg_torch.ops.kernels import quantize as k5
+    from octseg_torch.ops.kernels.int8_conv import int8_conv2d_plain, output_size
+    from octseg_torch.ops.kernels.quantize import quantize_activation_plain
+
+    kh, kw, cin, cout, sh, sw, dh, dw, top, bottom, left, right, h, w = call
+    x, weight, bias = int8_case(torch, call, batch, seed)
+    xq, sa, wq, scale, stride, pads, dil = int8_operands(torch, call, x, weight)
+    cp = xq.shape[3]
+    k4_ms = time_ms(torch, lambda: k4.int8_conv2d(xq, wq, scale, bias, stride, pads, dil),
+                    hold=True)
+    k4_plain = time_ms(torch, lambda: int8_conv2d_plain(xq, wq, scale, bias, stride, pads, dil,
+                                                        torch.float32), runs=3, warmup=1)
+    k4_bound, k4_by = k4_bound_ms(call, batch)
+    k5_ms = time_ms(torch, lambda: k5.quantize_activation(x, cp), hold=True)
+    k5_plain = time_ms(torch, lambda: quantize_activation_plain(x, cp), runs=5, warmup=1)
+    k5_bound = (x.numel() * 4 + batch * h * w * cp) / HBM_BYTES_PER_S * 1e3
+    # yardsticks (the port calls none of them)
+    xp = F.pad(x, (left, right, top, bottom))
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        fp32_ms = time_ms(torch, lambda: F.conv2d(xp, weight, bias, stride, 0, dil), hold=True)
+    xb, wb, bb = xp.to(torch.bfloat16), weight.to(torch.bfloat16), bias.to(torch.bfloat16)
+    bf16_ms = time_ms(torch, lambda: F.conv2d(xb, wb, bb, stride, 0, dil), hold=True)
+    ho = output_size(h, kh, sh, dh, (top, bottom))
+    wo = output_size(w, kw, sw, dw, (left, right))
+    # the int8 GEMM alone on the im2col matrix, (M, K) x (K, N)
+    cols = F.unfold(F.pad(xq.permute(0, 3, 1, 2).to(torch.bfloat16), (left, right, top, bottom)),
+                    (kh, kw), dilation=dil, stride=stride)             # (B, Cp kh kw, L)
+    a = cols.transpose(1, 2).reshape(batch * ho * wo, -1).to(torch.int8).contiguous()
+    del cols
+    b = wq.permute(3, 1, 2, 0).reshape(-1, cout).to(torch.int8)        # (Cp kh kw, N)
+    b = b.t().contiguous().t() if b.shape[1] % 8 == 0 else None
+    int_mm_ms = (time_ms(torch, lambda: torch._int_mm(a, b), hold=True)
+                 if b is not None and a.shape[0] > 16 else None)
+    del a
+    amax_ms = time_ms(torch, lambda: x.abs().amax(), hold=True)
+    rec = {'call': list(call), 'batch': batch,
+           'k4': {'ms': k4_ms, 'plain_ms': k4_plain, 'bound_ms': k4_bound, 'bound_by': k4_by,
+                  'yardsticks_ms': {'int_mm_on_im2col': int_mm_ms, 'cudnn_fp32_tf32_off': fp32_ms,
+                                    'cudnn_bf16': bf16_ms}},
+           'k5': {'ms': k5_ms, 'plain_ms': k5_plain, 'bound_ms': k5_bound, 'bound_by': 'bytes',
+                  'yardsticks_ms': {'amax': amax_ms}}}
+    log(f'int8 call {call} at batch {batch}: K4 {k4_ms:.4f} ms (bound {k4_bound:.4f}, {k4_by}; '
+        f'plain {k4_plain:.3f}; int_mm {int_mm_ms}, cuDNN fp32 {fp32_ms:.4f}, bf16 '
+        f'{bf16_ms:.4f}); K5 {k5_ms:.4f} ms (bound {k5_bound:.4f}; plain {k5_plain:.4f}; amax '
+        f'{amax_ms:.4f})')
+    return rec
+
+
+def int8_predict(tmp: str, main, int8_kernels):
+    """The 32-frame main-path pullback through predict with ``int8=true`` on
+    the softened winners (the bf16 phase's model dirs): frames/s, seconds
+    per stage, each model's chunk; K4 and K5 launches, which must equal each
+    model's eligible calls times its forwards (the chunks of the block and
+    the probe's two); then an int8 engine's masks against an fp32 engine's,
+    per class the share of pixels that differ where the fp32 probability is
+    at least INT8_BAND from 0.5 within INT8_MASK_SHARE; each model's block
+    alone again under the allocator cap of its predicted peak /
+    CHUNK_MARGIN (must fit), its measured peak recorded; and the three
+    families at 64 px, int8 logits on the card against the CPU's (share
+    within 1e-3, maximum)."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from octseg_torch.core.config import load_config
+    from octseg_torch.infer.engine import CHUNK_MARGIN, PROBE_CHUNKS, InferenceEngine
+    from octseg_torch.infer.predict import load_pullback_frames
+    from octseg_torch.ops.kernels import int8_conv as k4
+    from octseg_torch.ops.kernels import quantize as k5
+
+    models = os.path.join(tmp, 'soft')
+    k4.launches = k5.launches = 0
+    record = {'predict': run_predict([f'data_dir={main["dcm"]}', f'models_dir={models}',
+                                      'int8=true'], os.path.join(tmp, 'predict_int8'),
+                                     MAIN_FRAMES, 'int8 predict path')}
+    launches = {'k4': k4.launches, 'k5': k5.launches}
+    forwards = {name: -(-MAIN_FRAMES // chunk) + len(PROBE_CHUNKS)
+                for name, chunk in record['predict']['chunks'].items()}
+    want = sum(int8_kernels['models'][name]['eligible_calls'] * n for name, n in forwards.items())
+    record.update(launches=launches, forwards=forwards, expected_launches=want)
+    log(f'int8 predict: K4 {launches["k4"]}, K5 {launches["k5"]} launches; eligible calls x '
+        f'forwards {want} ({forwards})')
+    if launches != {'k4': want, 'k5': want}:
+        raise AssertionError(f'int8 predict launched {launches}, expected {want} of each')
+
+    cfg = load_config('predict')
+    classes = list(cfg.classes)
+    frames = load_pullback_frames(main['dcm'])
+    out = (MAIN_OUT, MAIN_OUT)
+    total = torch.cuda.get_device_properties(0).total_memory
+    masks, engines = {}, {}
+    for int8 in (False, True):
+        engines[int8] = InferenceEngine(models, classes, block_size=int(cfg.block_size),
+                                        device='cuda', int8=int8)
+        masks[int8] = engines[int8].segment_pullback(frames, out)
+    record.update(band=INT8_BAND, bound=INT8_MASK_SHARE, classes={}, models={})
+    for name, routes in engines[False]._ensemble_plan().items():
+        p32 = probabilities(engines[False], name, frames, out)
+        for cls, ch, mask_ch in routes:
+            differ = masks[False][..., mask_ch] != masks[True][..., mask_ch]
+            away = np.abs(p32[:, ch] - 0.5) >= INT8_BAND
+            rec = {'differing_share': float(differ.mean()),
+                   'differing_share_away': float((differ & away).mean()),
+                   'near_share': float((~away).mean()),
+                   'max_fp32_prob_distance_of_a_flip': (
+                       float(np.abs(p32[:, ch] - 0.5)[differ].max()) if differ.any() else None),
+                   'positive_share_fp32': float(masks[False][..., mask_ch].mean())}
+            record['classes'][cls] = rec
+            log(f'int8 vs fp32, {cls} ({name}): {rec["differing_share"]:.3e} of pixels differ, '
+                f'{rec["differing_share_away"]:.3e} with the fp32 probability at least '
+                f'{INT8_BAND} from 0.5 (bound {INT8_MASK_SHARE}); the farthest flip '
+                f'{rec["max_fp32_prob_distance_of_a_flip"]} from 0.5; positive share '
+                f'{rec["positive_share_fp32"]:.4f}')
+    # each model's block alone (the bundle the int8 engine loaded) under the
+    # allocator cap of its predicted peak / CHUNK_MARGIN
+    engine = engines[True]
+    del engines
+    for name, routes in engine._ensemble_plan().items():
+        alone = InferenceEngine(models, [cls for cls, _ch, _m in routes],
+                                block_size=int(cfg.block_size), device='cuda', int8=True)
+        alone._bundles[name] = engine._bundles[name]
+        list(alone.iter_pullback(frames, out))                         # probes
+        plan = next(iter(alone.chunk_plans.values()))
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.set_per_process_memory_fraction(
+            min(1.0, plan.predicted_peak_bytes / CHUNK_MARGIN / total))
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            list(alone.iter_pullback(frames, out))
+            peak = torch.cuda.max_memory_allocated()
+        finally:
+            torch.cuda.set_per_process_memory_fraction(1.0)
+        record['models'][name] = dict(plan._asdict(),
+                                      peak_allocated_bytes_capped_at_margin=peak)
+        log(f'int8 {name}: chunk {plan.chunk} of {MAIN_FRAMES}, '
+            f'{plan.bytes_per_frame / 2**20:.1f} MiB per frame fitted, predicted peak '
+            f'{plan.predicted_peak_bytes / 2**30:.2f} GiB, measured under the cap of predicted '
+            f'/ {CHUNK_MARGIN} {peak / 2**30:.2f} GiB')
+        del alone
+    del engine
+    gc.collect()
+    bad = {c: r['differing_share_away'] for c, r in record['classes'].items()
+           if r['differing_share_away'] > INT8_MASK_SHARE}
+    if bad:
+        raise AssertionError(f'int8 masks differ from fp32 beyond the bound: {bad}')
+    record['logits_gpu_vs_cpu'] = int8_logits_gpu_vs_cpu()
+    return record
+
+
+def int8_logits_gpu_vs_cpu():
+    """The three ensemble families at 64 px (random weights from seeds 0-2,
+    two frames), int8 logits on the card (K4, K5) against the CPU's (the
+    plain versions): the share within 1e-3 and the largest difference. A
+    float32 activation one ulp apart on the two devices may round to the
+    other int8 value at a .5 boundary, so the maximum is recorded, not
+    bounded; int8 against fp32 on the card is recorded beside it."""
+    import torch
+
+    from octseg_torch.infer.engine import fp32_exact
+    from octseg_torch.models import create_model
+    from octseg_torch.ops.quantize import apply_int8
+
+    record = {}
+    for seed, (name, classes, arch, encoder, _size) in enumerate(ENSEMBLE):
+        torch.manual_seed(seed)
+        model = create_model(arch, encoder, classes=len(classes)).eval()
+        x = torch.randn(2, 3, 64, 64, generator=torch.Generator().manual_seed(seed))
+        out = {}
+        for device in ('cpu', 'cuda'):
+            model.to(device)
+            with torch.inference_mode(), fp32_exact():
+                out[device] = apply_int8(model, x.to(device)).float().cpu()
+                if device == 'cuda':
+                    exact = model(x.to(device)).float().cpu()
+        delta = (out['cuda'] - out['cpu']).abs()
+        record[name] = {'model': f'{arch}/{encoder}', 'share_within_1e-3': float(
+            (delta <= 1e-3).double().mean()), 'max_abs_delta': float(delta.max()),
+            'max_abs_int8_vs_fp32': float((out['cuda'] - exact).abs().max()),
+            'max_abs_logit': float(out['cpu'].abs().max())}
+        log(f'int8 logits GPU vs CPU, {arch}/{encoder} at 64 px: {record[name]}')
+        if not torch.isfinite(out['cuda']).all():
+            raise AssertionError(f'{name}: non-finite int8 logits on the card')
+        del model
+    return record
+
+
+def int8_evaluate(train, evaluated):
+    """``evaluate int8=true`` on the training path's model dir and fold on
+    the card: each class's Dice against the exact evaluate of the
+    "evaluate" phase, recorded against INT8_DICE_BAND; K4 and K5 must
+    launch."""
+    from octseg_torch.ops.kernels import int8_conv as k4
+    from octseg_torch.ops.kernels import quantize as k5
+    from octseg_torch.train.evaluate import evaluate_model
+
+    k4.launches = k5.launches = 0
+    t = time.perf_counter()
+    got = evaluate_model(train['model_dir'], train['fold'], int8=True, device='cuda')
+    seconds = time.perf_counter() - t
+    exact = evaluated['gpu']
+    delta = {c: got[c]['dice'] - exact[c]['dice'] for c in exact}
+    record = {'int8': got, 'dice_delta': delta, 'band': INT8_DICE_BAND,
+              'within_band': all(abs(d) <= INT8_DICE_BAND for d in delta.values()),
+              'seconds': seconds, 'launches': {'k4': k4.launches, 'k5': k5.launches}}
+    log(f'int8 evaluate: Dice deltas against exact {delta} (band {INT8_DICE_BAND}), '
+        f'{seconds:.2f} s, K4 {k4.launches} and K5 {k5.launches} launches')
+    if not (k4.launches and k5.launches):
+        raise AssertionError('int8 evaluate launched no int8 kernel')
+    if not all(0.0 <= got[c]['dice'] <= 1.0 for c in got):
+        raise AssertionError(f'int8 evaluate gave Dice outside [0, 1]: {got}')
+    return record
+
+
+def vis_path(tmp: str):
+    """``python -m octseg_torch.vis.draw_loss_plot`` and ``draw_boxplots``
+    on the "folds" phase's two metrics.csv files, copied under a class
+    directory as a CV study lays them out: the figures and best_metrics.csv
+    written, the boxes and lines non-empty; seconds."""
+    from octseg_torch.vis.draw_boxplots import main as draw_boxplots
+    from octseg_torch.vis.draw_loss_plot import main as draw_loss_plot
+
+    study = os.path.join(tmp, 'study', 'Lumen')
+    for k in (1, 2):
+        os.makedirs(os.path.join(study, f'fold_{k}'))
+        shutil.copy(os.path.join(tmp, 'folds', 'unet_resnet50', f'fold_{k}', 'metrics.csv'),
+                    os.path.join(study, f'fold_{k}', 'metrics.csv'))
+    out = os.path.join(tmp, 'figures')
+    t = time.perf_counter()
+    loss_svg = draw_loss_plot(overrides=[f'class_dir={study}', f'save_dir={out}'])
+    loss_s = time.perf_counter() - t
+    t = time.perf_counter()
+    boxes = draw_boxplots(overrides=[f'class_dirs=[{study}]', f'save_dir={out}'])
+    box_s = time.perf_counter() - t
+    with open(boxes['best_metrics']) as f:
+        best_rows = len(f.read().splitlines()) - 1
+    for path in (loss_svg, boxes['figure']):
+        with open(path, 'rb') as f:
+            if not f.read(5) == b'<svg ':
+                raise AssertionError(f'{path} is not an SVG')
+    if not boxes['boxes'] or best_rows < 2:
+        raise AssertionError(f'draw_boxplots drew {boxes["boxes"]} from {best_rows} rows')
+    record = {'loss_plot': os.path.basename(loss_svg), 'loss_plot_s': loss_s,
+              'boxplot': os.path.basename(boxes['figure']), 'boxplot_s': box_s,
+              'best_rows': best_rows, 'boxes': [b['class'] for b in boxes['boxes']]}
+    log(f'vis: {record}')
+    return record
+
+
 def main() -> int:
     import torch
 
@@ -2714,9 +3197,10 @@ def main() -> int:
                 fut.result()
         return zlib
 
-    zlib = phases.run('build', build, ['postprocess', 'warp'])
+    zlib = phases.run('build', build, ['postprocess', 'warp', 'quantize', 'int8_conv'])
     k1 = phases.run('K1 vs plain', check_k1, torch)
     k2 = phases.run('K2 vs plain', check_k2, torch)
+    int8_kernels = phases.run('int8 kernels', check_int8_kernels, torch)
     tmp = tempfile.mkdtemp(prefix='octseg_torch_smoke_')
     try:
         main = phases.run('predict path', main_path, tmp)
@@ -2729,6 +3213,7 @@ def main() -> int:
         memory = phases.run('block memory', block_memory, main)
         memory_bf16 = phases.run('block memory bf16', block_memory, main, True)
         bf16 = phases.run('bf16 predict', bf16_predict, tmp, main)
+        int8 = phases.run('int8 predict', int8_predict, tmp, main, int8_kernels)
         served = phases.run('serve', serve_path, tmp, main, os.path.join(tmp, 'soft'))
         share = phases.run('routing GPU vs CPU', routing, tmp)
         logits = phases.run('logits GPU vs CPU', logits_gpu_vs_cpu, main)
@@ -2738,7 +3223,9 @@ def main() -> int:
                                   False)
         loaded = phases.run('native loader', native_loader_path, train)
         evaluated = phases.run('evaluate', evaluate_path, train)
+        int8_evaluated = phases.run('int8 evaluate', int8_evaluate, train, evaluated)
         folds = phases.run('folds', folds_path, tmp)
+        figures = phases.run('vis', vis_path, tmp)
         remat = phases.run('remat step', remat_step)
         b7_memory = phases.run('bf16 b7 step memory', b7_step_memory)
         step_gaps = phases.run('train step GPU vs CPU', train_step_gpu_vs_cpu)
@@ -2800,6 +3287,33 @@ def main() -> int:
         'library_ms_cold_l2': k2['library_ms_cold_l2'],
         # the tune and zoo train steps' shape, which takes the general path
         **{k: v for k, v in k2.items() if k.endswith('_2x896x896x3x1')},
+    }, {
+        'name': 'int8_conv2d',
+        'route': 'cuda',
+        'source': 'octseg_torch/csrc/int8_conv.cu',
+        'replaces': 'octseg/ops/quantize.py:79 (XLA conv, no Pallas kernel)',
+        'launches': int8['launches']['k4'] + int8_evaluated['launches']['k4'],
+        'launches_by_path': {'int8 predict': int8['launches']['k4'],
+                             'int8 evaluate': int8_evaluated['launches']['k4']},
+        'shape': int8_kernels['timed_call'], 'batch': INT8_TIME_BATCH,
+        'max_abs_err': int8_kernels['k4_max_abs_err'],
+        'exact_calls': int8_kernels['distinct_calls'],
+        **{k: int8_kernels['k4'][k] for k in ('ms', 'plain_ms', 'bound_ms', 'bound_by')},
+        'library_ms': None,
+        'yardsticks_ms': int8_kernels['k4']['yardsticks_ms'],
+    }, {
+        'name': 'quantize_activation',
+        'route': 'cuda',
+        'source': 'octseg_torch/csrc/quantize.cu',
+        'replaces': 'octseg/ops/quantize.py:59 (XLA fusion, no Pallas kernel)',
+        'launches': int8['launches']['k5'] + int8_evaluated['launches']['k5'],
+        'launches_by_path': {'int8 predict': int8['launches']['k5'],
+                             'int8 evaluate': int8_evaluated['launches']['k5']},
+        'shape': int8_kernels['timed_call'], 'batch': INT8_TIME_BATCH,
+        'max_abs_err': int8_kernels['k5_max_abs_err'],
+        **{k: int8_kernels['k5'][k] for k in ('ms', 'plain_ms', 'bound_ms', 'bound_by')},
+        'library_ms': None,
+        'yardsticks_ms': int8_kernels['k5']['yardsticks_ms'],
     }]
     records = {'predict_path': {k: main[k] for k in (
                    'frames', 'seconds', 'chunks', 'k1_shapes', 'positive_share',
@@ -2813,6 +3327,10 @@ def main() -> int:
                'block_memory': memory,
                'block_memory_bf16': memory_bf16,
                'bf16_predict': bf16,
+               'int8_kernels': int8_kernels,
+               'int8_predict': int8,
+               'int8_evaluate': int8_evaluated,
+               'vis': figures,
                'serve': served,
                'evaluate': evaluated,
                'folds': folds,

@@ -3,9 +3,10 @@
 octseg reads and writes its CSVs through pandas (the sweep aggregator, the
 DICOM metadata, the interim and fold metadata); ``Table`` keeps the
 behaviours those files depend on, so the port's files are byte-equal:
-read_csv's type inference (ints, floats, bools, strings; its NA strings and
-empty cells read as NaN; an int column with a NaN becomes float, written
-``3.0``; a blank header cell named ``Unnamed: i``), a frame built from
+read_csv's float parser and type inference (ints, floats, bools, strings;
+its NA strings and empty cells read as NaN; an int column with a NaN
+becomes float, written ``3.0``; a blank header cell named ``Unnamed: i``),
+a frame built from
 records (None as NaN; ints with a NaN become float), concat's column union
 in order of appearance with NaN in the gaps, sort_values' stable multi-key
 sort with NaN last, and to_csv with floats written as ``repr`` and an
@@ -30,6 +31,42 @@ NAN = float('nan')
 
 def _is_na(v: Any) -> bool:
     return v is None or (isinstance(v, float) and math.isnan(v))
+
+
+_DECIMAL = re.compile(r'\s*([+-]?)(\d*)(?:\.(\d*))?(?:[eE]([+-]?\d+))?\s*')
+_POW10 = [float(f'1e{k}') for k in range(309)]
+
+
+def _read_float(s: str) -> float:
+    """``s`` as pandas' C parser reads a float by default
+    (``precise_xstrtod``): at most 17 digits accumulated as ``n * 10 + d``
+    in doubles, then one multiplication or division by a power of ten. A
+    17-digit value may come out an ulp from Python's correctly rounded
+    ``float(s)``; forms that are not plain decimals go to ``float``."""
+    m = _DECIMAL.fullmatch(s)
+    if m is None or not (m.group(2) or m.group(3)):
+        return float(s)
+    sign, whole, frac, exp = m.groups()
+    number, digits, exponent = 0.0, 0, int(exp or 0)
+    for ch in whole:
+        if digits < 17:
+            number = number * 10.0 + (ord(ch) - 48)
+            digits += 1
+        else:
+            exponent += 1
+    for ch in (frac or '')[:max(17 - digits, 0)]:
+        number = number * 10.0 + (ord(ch) - 48)
+        digits += 1
+        exponent -= 1
+    if sign == '-':
+        number = -number
+    if exponent > 308:
+        return math.copysign(math.inf, number)
+    if exponent > 0:
+        return number * _POW10[exponent]
+    if exponent < -308:
+        return 0.0 * number if exponent < -616 else number / _POW10[-308 - exponent] / _POW10[308]
+    return number / _POW10[-exponent]
 
 
 def _parse_float(s: str) -> Optional[float]:
@@ -72,7 +109,7 @@ class Table:
                 return 'int', [int(c) for c in cells]
             return 'float', [NAN if c in _NA_STRINGS else float(int(c)) for c in cells]
         if all(_parse_float(c) is not None for c in present):
-            return 'float', [NAN if c in _NA_STRINGS else float(c) for c in cells]
+            return 'float', [NAN if c in _NA_STRINGS else _read_float(c) for c in cells]
         if all(c in _TRUE or c in _FALSE for c in present):
             values = [NAN if c in _NA_STRINGS else c in _TRUE for c in cells]
             return ('object' if has_na else 'bool'), values

@@ -42,8 +42,13 @@ block.
 ``bf16=True`` builds every model with bfloat16 compute (octseg's
 ``compute_dtype``: float32 parameters, bfloat16 convolutions, float32
 BatchNorm and logits; models/common.py); the probe measures its smaller
-activations like any others. Not ported: the device mesh, int8 and AOT
-exports (ROADMAP.md, "Opt-in, last").
+activations like any others. ``int8=True`` runs every forward under
+``ops.quantize.int8_conv_mode()`` (octseg's int8 path: eligible
+convolutions through the K5 activation quantizer and the K4 int8
+convolution); the probe measures that forward. The activation scale spans
+the forward's batch, which here is the chunk (in octseg, its sharded
+batch): an int8 result depends on which frames share a chunk. Not ported:
+the device mesh and AOT exports (ROADMAP.md, "Opt-in, last").
 
 fp32 convolutions run with TF32 off (``torch.backends.cudnn.flags(...,
 allow_tf32=False)``) and so do matmuls (``torch.backends.cuda.matmul
@@ -70,6 +75,7 @@ from octseg_torch.models import create_model
 from octseg_torch.models.convert import variables_to_state_dict
 from octseg_torch.ops.bitpack import pack_mask_bits, unpack_mask_bits, unpack_route_into
 from octseg_torch.ops.normalize import normalize_imagenet, sigmoid_threshold
+from octseg_torch.ops.quantize import int8_conv_mode
 from octseg_torch.ops.resize import resize_bilinear_nchw, resize_nearest_nchw
 from octseg_torch.train.checkpoint import load_weights
 
@@ -163,7 +169,7 @@ class InferenceEngine:
 
     def __init__(self, models_dir: str, classes: Sequence[str],
                  block_size: int = 128, output_resize: str = 'prob_bilinear',
-                 device=None, bf16: bool = False):
+                 device=None, bf16: bool = False, int8: bool = False):
         # output_resize: 'prob_bilinear' (default) resizes the sigmoid
         # probabilities bilinearly, then thresholds at 0.5; 'nearest' is the
         # reference's contract (threshold, then cv2 NEAREST resize)
@@ -178,8 +184,10 @@ class InferenceEngine:
         self.block_size = 1 << (int(block_size).bit_length() - 1)
         self.device = resolve_device(device)
         self.compute_dtype = torch.bfloat16 if bf16 else torch.float32
+        self.int8 = bool(int8)
         self._bundles: Dict[str, tuple] = {}
-        # (model dir, forward variant, block frame shape, output size) -> ChunkPlan
+        # (model dir, forward variant, int8, block frame shape, output size)
+        # -> ChunkPlan
         self.chunk_plans: Dict[tuple, ChunkPlan] = {}
 
     def _bundle(self, model_dir_name: str):
@@ -205,9 +213,10 @@ class InferenceEngine:
         # reference predict() quirk: raw BGR 0..255 floats, no mean/std
         normalize = bool(model_cfg.get('normalize', False))
         output_resize = self.output_resize
+        quantized = int8_conv_mode if self.int8 else contextlib.nullcontext
 
         def forward(imgs: torch.Tensor) -> torch.Tensor:
-            with torch.inference_mode(), fp32_exact():
+            with torch.inference_mode(), fp32_exact(), quantized():
                 if device_preprocess:
                     # RGB -> BGR (an identity on one channel), then resize; a
                     # mono frame broadcasts to 3 channels after the resize
@@ -255,13 +264,13 @@ class InferenceEngine:
     def _chunk_for(self, name: str, variant: str, forward, frame_shape: Sequence[int],
                    out_hw: Tuple[int, int], resident: int) -> int:
         """The chunk ``name`` runs a block of ``frame_shape`` frames in,
-        decided once per (model, forward variant, block frame shape, output
-        size): the pullback variant (frames at native size, resized on the
-        device) and the image variant (frames at the input size) may share a
+        decided once per (model, forward variant, int8, block frame shape,
+        output size): the pullback variant (frames at native size, resized on
+        the device) and the image variant (frames at the input size) may share a
         frame shape and need different memory, so a plan of one is never
         reused for the other. ``resident``: device bytes the caller holds
         beside a chunk that are not allocated yet."""
-        key = (name, variant, tuple(frame_shape), tuple(out_hw))
+        key = (name, variant, self.int8, tuple(frame_shape), tuple(out_hw))
         if key not in self.chunk_plans:
             probe = self._memory_probe(forward, frame_shape)
             if probe is None:

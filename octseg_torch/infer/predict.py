@@ -10,8 +10,9 @@ The port of octseg/infer/predict.py. ``data_dir`` may be:
   resizes them, ``InferenceEngine.segment`` fills their masks and
   ``save_results`` writes ``{name}_overlay.png`` and ``{name}_mask.png``.
 
-``bf16: true`` runs the models with bfloat16 compute; ``int8: true`` raises
-(ROADMAP.md, "Opt-in, last").
+``bf16: true`` runs the models with bfloat16 compute; ``int8: true`` runs
+their eligible convolutions in int8 (ops/quantize.py), with activation
+scales that span each chunk of frames.
 
 Config: configs/predict.yaml (the reference's keys).
 Usage: python -m octseg_torch.infer.predict data_dir=<pullback.dcm or image dir> \\
@@ -37,20 +38,6 @@ from octseg_torch.data.utils import data_processing, save_results
 from octseg_torch.infer.engine import InferenceEngine
 
 log = logging.getLogger(__name__)
-
-# keys that octseg's entry points pass to its engine and the port does not run
-_NOT_PORTED = {
-    'int8': 'int8 weights are ROADMAP.md, "Opt-in, last"',
-}
-
-
-def check_ported(keys) -> None:
-    """Raise NotImplementedError for a key of _NOT_PORTED that ``keys`` (a
-    config or a dict) sets true."""
-    for key, why in _NOT_PORTED.items():
-        if keys.get(key, False):
-            raise NotImplementedError(f'{key}: true is not ported: {why}')
-
 
 def _is_dicom(path: str) -> bool:
     if not os.path.isfile(path):
@@ -145,7 +132,6 @@ def main(cfg: Config) -> Dict[str, object]:
     """Run the predict path for a DICOM pullback or an image directory;
     returns ``{'frames': n, 'seconds': {stage: s}, 'chunks': {model dir:
     frames per forward}}``."""
-    check_ported(cfg)
     data_dir, models_dir, save_dir = (octseg_torch.project_path(cfg.data_dir),
                                       octseg_torch.project_path(cfg.models_dir),
                                       octseg_torch.project_path(cfg.save_dir))
@@ -154,7 +140,8 @@ def main(cfg: Config) -> Dict[str, object]:
         models_dir=models_dir, classes=list(cfg.classes),
         block_size=int(cfg.get('block_size', 128)),
         output_resize=str(cfg.get('output_resize', 'prob_bilinear')),
-        device=cfg.get('device', 'auto'), bf16=bool(cfg.get('bf16', False)))
+        device=cfg.get('device', 'auto'), bf16=bool(cfg.get('bf16', False)),
+        int8=bool(cfg.get('int8', False)))
     pullback = _is_dicom(data_dir)
     if pullback:
         os.makedirs(save_dir, exist_ok=True)

@@ -33,8 +33,8 @@ instead of its 503).
 Differences from the JAX package: ``device`` (default ``auto``: the GPU)
 comes from the config, as in predict; the engine runs under ``fp32_exact``
 (engine.py), whose TF32 switches are process-wide, so it is entered inside
-the device lock; ``int8: true`` raises NotImplementedError before any model
-loads; AOT exports are not consulted (ROADMAP.md, "Opt-in, last").
+the device lock; AOT exports are not consulted (ROADMAP.md, "Opt-in,
+last").
 
 Config: configs/serve.yaml.
 Usage: python -m octseg_torch.infer.serve models_dir=<abs> [port=7884] [key=value ...]
@@ -62,7 +62,7 @@ from octseg_torch.analyze.analysis import quantify_frame
 from octseg_torch.core.config import Config, entry_point
 from octseg_torch.core.registry import CLASS_IDS
 from octseg_torch.infer.engine import MODELS_META, InferenceEngine, fp32_exact
-from octseg_torch.infer.predict import check_ported, load_pullback_frames
+from octseg_torch.infer.predict import load_pullback_frames
 
 log = logging.getLogger(__name__)
 
@@ -126,7 +126,6 @@ class ServeState:
     """Engine and admission control shared across handler threads."""
 
     def __init__(self, cfg: Config):
-        check_ported(cfg)
         self.cfg = cfg
         self.classes = list(cfg.get('classes', list(CLASS_IDS)))
         self.output_size = [int(v) for v in cfg.get('output_size', [1000, 1000])]
@@ -134,7 +133,8 @@ class ServeState:
             models_dir=octseg_torch.project_path(cfg.models_dir), classes=self.classes,
             block_size=int(cfg.get('block_size', 128)),
             output_resize=str(cfg.get('output_resize', 'prob_bilinear')),
-            device=cfg.get('device', 'auto'), bf16=bool(cfg.get('bf16', False)))
+            device=cfg.get('device', 'auto'), bf16=bool(cfg.get('bf16', False)),
+            int8=bool(cfg.get('int8', False)))
         self.metrics = Metrics()
         # one pullback on the device at a time (the three models' activations
         # need the card's memory), a small bounded queue, then 503

@@ -29,7 +29,9 @@ bfloat16, every convolution casts its input, weight and bias to bfloat16 at
 use and returns bfloat16, as flax's ``nn.Conv(dtype=bfloat16)`` does, and
 every BatchNorm computes in float32 and returns its input's dtype, as
 flax's ``nn.BatchNorm(dtype=bfloat16)`` does; parameters and running
-statistics stay float32. In training, a BatchNorm that runs again while a
+statistics stay float32. Under ``ops.quantize.int8_conv_mode()`` an
+eligible ``Conv2d`` or ``Conv2dSame`` runs octseg's int8 path instead
+(ops/quantize.py). In training, a BatchNorm that runs again while a
 checkpointed block is recomputed in the backward (models/remat.py) leaves
 its running statistics alone: they move once per step, as in flax, whose
 recomputation is functional.
@@ -45,6 +47,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from octseg_torch.models.remat import recomputing
+from octseg_torch.ops import quantize
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -88,6 +91,9 @@ class _ComputeDtype:
 
 class Conv2d(_ComputeDtype, nn.Conv2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if quantize.int8_active() and quantize.eligible(self):
+            (ph, pw) = self.padding
+            return quantize.quantized_conv(self, x, ((ph, ph), (pw, pw)))
         return self._conv_forward(*self.cast(x))
 
 
@@ -126,6 +132,8 @@ class Conv2dSame(Conv2d):
         (top, bottom), (left, right) = (
             same_padding(size, k, s, d) for size, k, s, d in
             zip(x.shape[-2:], self.kernel_size, self.stride, self.dilation))
+        if quantize.int8_active() and quantize.eligible(self):
+            return quantize.quantized_conv(self, x, ((top, bottom), (left, right)))
         x, w, b = self.cast(x)
         if top == bottom and left == right:
             return F.conv2d(x, w, b, self.stride, (top, left), self.dilation, self.groups)

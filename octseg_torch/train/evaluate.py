@@ -6,8 +6,9 @@ rows with the reference's metric semantics (per-sample statistics averaged
 over the split, dice = 2 iou / (iou + 1)) and their ``Mean``. Inputs are
 ImageNet-normalised unless the manifest says ``normalize: false`` (the
 training semantics, not predict's). The forward runs under ``fp32_exact``
-(TF32 off). ``int8: true`` raises NotImplementedError (ROADMAP.md, "Opt-in,
-last").
+(TF32 off). ``int8: true`` runs it under ``int8_conv_mode()`` (octseg's int8
+path, ops/quantize.py); each batch has its own activation scales, so the
+last, smaller batch of a split is scaled over its own frames, as in octseg.
 
 Config: configs/evaluate.yaml.
 Usage: python -m octseg_torch.train.evaluate model_dir=<abs> data_dir=<abs fold>
@@ -16,6 +17,7 @@ Usage: python -m octseg_torch.train.evaluate model_dir=<abs> data_dir=<abs fold>
 
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import os
@@ -27,8 +29,8 @@ import torch
 import octseg_torch
 from octseg_torch.core.config import Config, entry_point
 from octseg_torch.infer.engine import fp32_exact, load_model_bundle
-from octseg_torch.infer.predict import check_ported
 from octseg_torch.ops.normalize import normalize_imagenet, sigmoid_threshold
+from octseg_torch.ops.quantize import int8_conv_mode
 from octseg_torch.train.data import OCTDataset, PrefetchLoader
 from octseg_torch.train.metrics import compute_metrics
 
@@ -41,7 +43,6 @@ def evaluate_model(model_dir: str, data_dir: str, batch_size: int = 8, split: st
                    int8: bool = False, device=None) -> Dict[str, Dict[str, float]]:
     """Per-class metrics ``{class: {iou, dice, precision, recall, f1}}`` and
     their ``Mean`` over the classes."""
-    check_ported({'int8': int8})
     device = octseg_torch.resolve_device(device)
     model, model_cfg = load_model_bundle(model_dir, device)
     classes: List[str] = model_cfg['classes']
@@ -49,7 +50,8 @@ def evaluate_model(model_dir: str, data_dir: str, batch_size: int = 8, split: st
     loader = PrefetchLoader(dataset, batch_size, shuffle=False, drop_last=False)
     normalize = bool(model_cfg.get('normalize', True))
     per_class: Dict[str, list] = {name: [] for name in METRICS}
-    with torch.inference_mode(), fp32_exact():
+    quantized = int8_conv_mode() if int8 else contextlib.nullcontext()
+    with torch.inference_mode(), fp32_exact(), quantized:
         for imgs, masks in loader:
             x = torch.from_numpy(imgs).to(device)
             if normalize:

@@ -39,7 +39,8 @@ from octseg_torch.models.convert import variables_to_state_dict
 
 # This module keeps torch's default thread count, not tests/torch_threads.py's
 # share: the port's GradCAM++ map misses octseg's by 0.048 at 1 or 2 threads
-# (ROADMAP.md C, "GradCAM++ parity depends on torch's thread count").
+# (ROADMAP.md C, "GradCAM++ parity depends on torch's thread count"; the
+# cases at 1 and 2 threads are below).
 
 CAM_ATOL = 1e-3
 ABLATION_ATOL = 1e-2
@@ -80,6 +81,58 @@ def test_every_method_within_the_tolerance_of_octsegs(arch, methods):
         img = np.random.default_rng(3).integers(0, 256, (SIZE, SIZE, 3), dtype=np.uint8)
         np.testing.assert_array_equal(CAMProcessor.overlay_activation_map(img, want),
                                       JaxCAMProcessor.overlay_activation_map(img, want))
+
+
+# GradCAM++ at 1 and 2 torch threads (ROADMAP.md C, "GradCAM++ parity
+# depends on torch's thread count", handled): one ReLU input of the last
+# decoder block lies within float32 rounding of 0 (-1.2e-7 at 1 thread,
+# 5.8e-8 at 8, on a scale of 1.25), so its gradient flips and the level-5
+# gradient moves 1.7e-3 relative (at 1 thread it is the float64 gradient's
+# within 3e-7; at 8, the port's and octseg's agree and both lie 1.7e-3
+# from it). GradCAM++'s alpha divides by 2 g^2 + sum(a g^3), which cancels:
+# the channels whose denominator is 10x smaller than the sum of its terms'
+# magnitudes carry 97.8% of the map's 0.048 miss. Held: channels whose
+# every denominator keeps at least 1/GPP_COND of its terms' magnitude give
+# weights within GPP_WELL_ATOL of octseg's (measured 8.6e-4), and at most
+# GPP_ILL_MAX of the 512 channels are not so conditioned (measured 67).
+GPP_COND = 5.0
+GPP_WELL_ATOL = 1e-3
+GPP_ILL_MAX = 80
+
+
+def _gradcam_pp_weights(a, g):
+    """(weights, per-channel condition: the largest sum of the
+    denominator's term magnitudes over |denominator|)."""
+    g2, g3 = g ** 2, g ** 3
+    denom = 2 * g2 + (a * g3).sum(axis=(0, 1), keepdims=True)
+    magnitude = 2 * g2 + np.abs(a * g3).sum(axis=(0, 1), keepdims=True)
+    alpha = np.where(g != 0, g2 / np.where(denom != 0, denom, 1e-8), 0)
+    weights = (alpha * np.maximum(g, 0)).sum(axis=(0, 1))
+    return weights, (magnitude / np.abs(denom)).max(axis=(0, 1))
+
+
+@pytest.mark.parametrize('threads', [1, 2])
+def test_gradcam_plus_plus_misses_only_where_its_denominator_cancels(threads):
+    from octseg.explain.cam import SemanticSegmentationTarget as JaxTarget
+    from octseg_torch.explain.cam import SemanticSegmentationTarget
+
+    model, variables, port = _pair('Unet')
+    x = np.random.default_rng(2).normal(0, 1, (SIZE, SIZE, 3)).astype(np.float32)
+    logits = np.asarray(model.apply(variables, x[None], train=False))[0]
+    mask = (logits[..., 0] > np.median(logits[..., 0])).astype(np.float32)
+    a, g, _ = JaxCAMProcessor(model, variables)._acts_and_grads(x, JaxTarget(0, mask))
+    want, cond = _gradcam_pp_weights(a, g)
+    before = torch.get_num_threads()
+    torch.set_num_threads(threads)
+    try:
+        a, g, _ = CAMProcessor(port, method='GradCAMPlusPlus')._acts_and_grads(
+            x, SemanticSegmentationTarget(0, mask))
+    finally:
+        torch.set_num_threads(before)
+    got, _ = _gradcam_pp_weights(a, g)
+    well = cond <= GPP_COND
+    assert (~well).sum() <= GPP_ILL_MAX
+    np.testing.assert_allclose(got[well], want[well], rtol=0, atol=GPP_WELL_ATOL)
 
 
 def test_jet_table_is_cv2s():

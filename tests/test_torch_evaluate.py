@@ -76,8 +76,18 @@ def test_main_writes_eval_json(trained):
 
 
 def test_int8_raises_before_the_model_loads(trained, monkeypatch):
+    """``int8=True`` (once raised here before the model loaded, the name
+    kept) now scores the int8 path: every eligible convolution of the
+    model runs it, once per batch, and the metrics stay near exact ones."""
+    from octseg_torch.ops import quantize
+
     model_dir, fold = trained
-    monkeypatch.setattr(evaluate, 'load_model_bundle',
-                        lambda *a, **k: pytest.fail('model loaded'))
-    with pytest.raises(NotImplementedError, match='int8: true is not ported.*ROADMAP.md'):
-        evaluate.evaluate_model(model_dir, fold, int8=True, device='cpu')
+    calls = []
+    real = quantize.quantized_conv
+    monkeypatch.setattr(quantize, 'quantized_conv',
+                        lambda conv, x, pads: calls.append(conv) or real(conv, x, pads))
+    got = evaluate.evaluate_model(model_dir, fold, batch_size=4, int8=True, device='cpu')
+    # Unet/resnet18: 24 eligible convolutions, six test frames in batches of 4 and 2
+    assert len(calls) == 24 * 2
+    exact = evaluate.evaluate_model(model_dir, fold, batch_size=4, device='cpu')
+    assert abs(got['Lumen']['dice'] - exact['Lumen']['dice']) <= 1e-2

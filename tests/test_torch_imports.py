@@ -2,12 +2,13 @@
 
 The machine with the card has no jax, flax, optax, cv2, PIL, yaml or
 msgpack, and the port must not lean on the JAX package: a clean interpreter
-runs the port's CPU predict path on a tiny pullback and on an image
-directory (a PNG and a JPEG, bf16), a CPU training epoch (augmentation
+runs the port's CPU predict path on a tiny pullback (fp32 and int8) and on
+an image directory (a PNG and a JPEG, bf16), a CPU training epoch (augmentation
 on, through the C++ loader) on a tiny synthetic fold, a DeepLabV3Plus forward
 (a dilated encoder), a GP-EI suggestion of the tuner after three
-observations, one NativeLoader batch, one GradCAM map and the
-reference-checkpoint import of a Lightning-style state dict, and must not
+observations, one NativeLoader batch, one GradCAM map, the
+reference-checkpoint import of a Lightning-style state dict and both vis
+figures over the training run's metrics.csv, and must not
 have loaded any of them (nor sklearn, which octseg's tuner fits its GP
 with); a second one runs the analyze app (demo and inference analysis,
 frame contours, the figures, the HTTP app) and the data-prep chain (every
@@ -52,6 +53,10 @@ cfg = load_config('predict', [f'data_dir={dcm}', f'models_dir={tmp}/models',
                               f'save_dir={tmp}/out', 'output_size=[24,32]',
                               "classes=[Lumen,'Fibrous cap']", 'device=cpu', 'block_size=2'])
 result = main(cfg)
+int8 = main(load_config('predict', [f'data_dir={dcm}', f'models_dir={tmp}/models',
+                                    f'save_dir={tmp}/out_int8', 'output_size=[24,32]',
+                                    "classes=[Lumen,'Fibrous cap']", 'device=cpu', 'block_size=2',
+                                    'int8=true']))
 # the image-directory path over a PNG and a JPEG (the C++ entropy decoder)
 import shutil
 from octseg_torch.data.image import write_png
@@ -94,9 +99,18 @@ torch.save({'state_dict': {f'model.{k}': v for k, v in
 shutil.copy(f'{tmp}/models/LM/config.json', f'{tmp}/reference')
 converted = sorted(os.listdir(convert_reference_model_dir(f'{tmp}/reference',
                                                           f'{tmp}/converted')))
+# the CV-study figures over the training run's metrics.csv
+from octseg_torch.vis import draw_boxplots, draw_loss_plot
+os.makedirs(f'{tmp}/study/Lumen/fold_1')
+shutil.copy(f'{summary["model_dir"]}/metrics.csv', f'{tmp}/study/Lumen/fold_1')
+figures = [os.path.basename(draw_loss_plot.main(overrides=[f'class_dir={tmp}/study/Lumen',
+                                                           f'save_dir={tmp}/figures'])),
+           os.path.basename(draw_boxplots.main(overrides=[f'class_dirs=[{tmp}/study/Lumen]',
+                                                          f'save_dir={tmp}/figures'])['figure'])]
 banned = %r
 loaded = sorted(m for m in sys.modules if m.split('.')[0] in banned)
 print(json.dumps({'frames': result['frames'], 'outputs': sorted(os.listdir(f'{tmp}/out')),
+                  'int8_outputs': sorted(os.listdir(f'{tmp}/out_int8')), 'figures': figures,
                   'converted': converted,
                   'images': images['frames'],
                   'image_outputs': sorted(os.listdir(f'{tmp}/out_images')),
@@ -122,6 +136,8 @@ def test_cpu_predict_path_loads_no_banned_module(tmp_path):
     assert result['loaded'] == []
     assert result['frames'] == 3
     assert len(result['outputs']) == 6 and 'IMG007_3_overlay.png' in result['outputs']
+    assert result['int8_outputs'] == result['outputs']
+    assert result['figures'] == ['Loss_Dice_Lumen.svg', 'Boxplot_Dice_test.svg']
     assert result['images'] == 2 and result['image_outputs'] == [
         'a_mask.png', 'a_overlay.png', 'b_mask.png', 'b_overlay.png']
     assert result['train_steps'] == 2

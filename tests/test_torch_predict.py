@@ -113,18 +113,24 @@ def test_image_directory_is_the_next_slice(models_dir, tmp_path):
 @pytest.mark.parametrize('key', ['int8'])
 def test_unported_precisions_raise_before_any_model_loads(models_dir, tmp_path, monkeypatch,
                                                           key):
+    """``int8=true`` (once raised here before any model loaded, the name
+    kept) now predicts: every model runs its eligible convolutions through
+    the int8 path (ops/quantize.py), none raises, and the pullback's PNGs
+    are written."""
+    from octseg_torch.ops import quantize
+
     dcm = str(tmp_path / 'IMG001')
-    jax_dicom.dcmwrite(dcm, np.zeros((2, 16, 16), np.uint8))
-
-    def no_model(self, name):
-        raise AssertionError(f'model {name} loaded')
-
-    monkeypatch.setattr(predict.InferenceEngine, '_bundle', no_model)
+    jax_dicom.dcmwrite(dcm, np.random.default_rng(2).integers(0, 255, (2, 40, 40), np.uint8))
+    calls = []
+    real = quantize.quantized_conv
+    monkeypatch.setattr(quantize, 'quantized_conv',
+                        lambda conv, x, pads: calls.append(conv) or real(conv, x, pads))
     cfg = Config(data_dir=dcm, models_dir=models_dir, save_dir=str(tmp_path / 'o'),
                  output_size=OUT, classes=CLASSES, device='cpu', **{key: True})
-    with pytest.raises(NotImplementedError, match=f'{key}: true is not ported.*ROADMAP.md'):
-        predict.main(cfg)
-    assert not os.path.exists(tmp_path / 'o')
+    result = predict.main(cfg)
+    assert result['frames'] == 2 and len(os.listdir(tmp_path / 'o')) == 4
+    # three Unet/resnet18 models, 24 eligible convolutions each, one forward
+    assert len(calls) == 3 * 24
 
 
 def test_bf16_predict_runs_the_models_in_bfloat16(models_dir, tmp_path, monkeypatch):

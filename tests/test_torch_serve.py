@@ -293,13 +293,32 @@ def test_client_raises_on_truncated_stream(tmp_path, monkeypatch):
         client.run(cfg)
 
 
-def test_int8_raises_before_any_model_loads(models_dir, monkeypatch):
-    def no_model(self, name):
-        raise AssertionError(f'model {name} loaded')
+def test_int8_raises_before_any_model_loads(models_dir, tmp_path, monkeypatch):
+    """``int8=true`` (once refused here before any model loaded, the name
+    kept) now serves: the engine runs every eligible convolution through
+    the int8 path, and the streamed blocks equal that engine's own masks."""
+    from octseg_torch.ops import quantize
 
-    monkeypatch.setattr(serve.InferenceEngine, '_bundle', no_model)
-    with pytest.raises(NotImplementedError, match='int8: true is not ported.*ROADMAP.md'):
-        serve.serve(server_config(models_dir, int8=True), block=False)
+    calls = []
+    real = quantize.quantized_conv
+    monkeypatch.setattr(quantize, 'quantized_conv',
+                        lambda conv, x, pads: calls.append(conv) or real(conv, x, pads))
+    httpd = serve.serve(server_config(models_dir, int8=True), block=False)
+    try:
+        frames, path = _pullback(tmp_path, n=3, seed=4)
+        with open(path, 'rb') as f:
+            lines = _stream(httpd, f.read())
+        engine = httpd.octseg_state.engine
+        assert engine.int8 and (lines[-1]['type'], lines[-1]['frames']) == ('end', 3)
+        # three Unet/resnet18 models, 24 eligible convolutions, one block
+        assert len(calls) == 3 * 24
+        got = np.zeros((3, *OUT, 4), np.float32)
+        for b in lines[1:-1]:
+            got[b['start']:b['start'] + b['count']] = serve.decode_block(b, b['count'], *OUT)
+        np.testing.assert_array_equal(got, engine.segment_pullback(frames, OUT))
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
 
 
 def test_serve_config_reads_unchanged():
